@@ -2,8 +2,8 @@
 
 Mirrors the 16 tunables of the reference implementation
 (/root/reference/cpp/deplex/include/deplex/config.h:51-81) with identical
-defaults and INI key names (config.cpp:44-75), plus TPU-specific static
-options that control compiled-shape bounds (``max_planes``,
+defaults and INI key names (config.cpp:44-75), plus static options that
+control compiled-shape bounds (``max_planes``,
 ``max_region_growing_rounds``) which have no reference analog because the
 serial C++ code has no need for static shapes.
 """
@@ -51,17 +51,11 @@ class Config:
     ransac_max_iterations: int = 1000
     ransac_threshold: float = 1.0
     ransac_inliers_ratio: float = 0.9
-    # --- TPU-native static bounds (no reference analog) ---
+    # --- Static shape bounds of the compiled pipeline (no reference analog) ---
     # Maximum number of plane segments tracked inside the compiled pipeline.
     max_planes: int = 64
     # Upper bound on region-growing rounds (consumed-histogram loop).
     max_region_growing_rounds: int = 256
-    # Region-growing backend: None = auto (Pallas kernel on TPU when the
-    # grid fits its VMEM budget, XLA loop otherwise), True/False = force.
-    use_pallas_growing: bool | None = None
-    # Cell-statistics backend for the raw-depth path: None = auto (fused
-    # Pallas depth->moments kernel on TPU when supported), True/False = force.
-    use_pallas_cellstats: bool | None = None
     # --- Cylinder extraction (CAPE's second primitive; not in the
     # reference library, SURVEY.md "Planes only") ---
     cylinder_extraction: bool = False
@@ -143,11 +137,9 @@ _INI_KEYS = {
     "ransacMaxIterations": "ransac_max_iterations",
     "ransacThreshold": "ransac_threshold",
     "ransacInliersRatio": "ransac_inliers_ratio",
-    # TPU-native extras, exposed under matching camelCase for symmetry.
+    # Extras beyond the reference, exposed under matching camelCase.
     "maxPlanes": "max_planes",
     "maxRegionGrowingRounds": "max_region_growing_rounds",
-    "usePallasGrowing": "use_pallas_growing",
-    "usePallasCellstats": "use_pallas_cellstats",
     "cylinderExtraction": "cylinder_extraction",
     "minCylinderCells": "min_cylinder_cells",
     "maxCylinders": "max_cylinders",
@@ -155,16 +147,10 @@ _INI_KEYS = {
     "cylinderRmseRel": "cylinder_rmse_rel",
 }
 
-def _parse_optional_bool(v):
-    if v is None or v == "":
-        return None
-    return bool(int(v))
-
-
 _FIELD_TYPES = {f.name: f.type for f in dataclasses.fields(Config)}
 # dataclasses stringifies annotations under `from __future__ import annotations`.
 _FIELD_TYPES = {
-    name: {"int": int, "float": float, "bool": bool,
-           "bool | None": _parse_optional_bool}[t if isinstance(t, str) else t.__name__]
+    name: {"int": int, "float": float, "bool": bool}[
+        t if isinstance(t, str) else t.__name__]
     for name, t in _FIELD_TYPES.items()
 }

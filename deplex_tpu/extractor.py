@@ -84,7 +84,7 @@ class PlaneExtractor:
     def process_depth(self, depth, intrinsics) -> np.ndarray:
         """Extract planes straight from a (H, W) uint16 depth map.
 
-        TPU-native fast path (no reference analog): ships the 6x-smaller raw
+        Device fast path (no reference analog): ships the 6x-smaller raw
         depth to the device and back-projects there (pipeline.backproject_device).
         """
         from deplex_tpu.pipeline import extract_planes_from_depth_jit

@@ -1,10 +1,10 @@
 // deplex-tpu native runtime: host-side hot-path utilities.
 //
-// TPU-native counterpart of the reference's vendored native I/O layer
+// Native counterpart of the reference's vendored native I/O layer
 // (/root/reference/cpp/deplex/src/deplex/utils/stb_image/stb_image.h — PNG
 // decode; /root/reference/cpp/deplex/src/deplex/utils/depth_image.cpp:55-78 —
 // pinhole back-projection). Written from scratch for exactly the subset the
-// framework feeds the TPU: 16-bit (and 8-bit) grayscale non-interlaced PNG
+// framework feeds the device: 16-bit (and 8-bit) grayscale non-interlaced PNG
 // depth maps, decoded straight into a caller-provided buffer, plus a fused
 // uint16->float32 organized-cloud back-projection so the host never
 // materializes intermediate index grids. Exposed to Python via ctypes

@@ -1,6 +1,6 @@
 """Device-side building blocks of the extraction pipeline.
 
-Each module is the TPU-native equivalent of one reference native component:
+Each module is the batched equivalent of one reference native component:
 
     eigh3x3    -- batched closed-form 3x3 eigensolve   (libs/dsyev)
     cellstats  -- cell validity gates + PCA plane fits  (cell_grid/cell_segment)

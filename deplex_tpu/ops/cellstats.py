@@ -1,6 +1,6 @@
 """Stage 1 — batched cell-grid statistics (planarity estimation).
 
-TPU-native equivalent of the reference's per-cell serial loop
+Batched equivalent of the reference's per-cell serial loop
 (cell_grid.cpp:36-43 + cell_segment.cpp:21-110 + cell_segment_stat.cpp:29-81):
 instead of constructing a CellSegment object per cell, every gate and the PCA
 plane fit are computed for ALL cells of the frame simultaneously as dense
@@ -33,7 +33,6 @@ Semantics notes (kept bit-faithful to the reference):
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import jax
@@ -41,38 +40,6 @@ import jax.numpy as jnp
 
 from deplex_tpu.config import Config
 from deplex_tpu.ops.eigh3x3 import eigh3x3_min
-
-
-def matmul_band_split(gh: int, cell_height: int, cell_width: int) -> int | None:
-    """Row-band count S for the MXU segment-matmul moment reduction, or None.
-
-    Shared between the fused Pallas kernel (ops/pallas_cellstats.py) and the
-    XLA mirror below so both tile identically — a requirement for their
-    bit-equality. S must divide gh (cells never straddle bands), keep the
-    band's cell rows sublane-aligned, and keep a ~6-plane f32 working set of
-    one band inside VMEM.
-    """
-    for s in range(1, gh + 1):
-        if gh % s == 0 and (gh // s) % 8 == 0 and \
-                6 * (cell_height // s) * cell_width * 4 <= 6 * 1024 * 1024:
-            return s
-    return None
-
-
-def moments_band_plan(gh: int, patch: int, cell_width: int):
-    """(gh_pad, S) for the anchored MXU moment reduction, or None.
-
-    Grids whose row count has no sublane-aligned band split (720p@P8:
-    gh=90 — no divisor s leaves (90/s) % 8 == 0) are PADDED with zero cell
-    rows up to the nearest gh_pad that splits; padded rows hold z=0 pixels,
-    produce all-zero moments, and are cropped before the gates, so the
-    real cells' arithmetic is unchanged. Both the Pallas kernel and the
-    XLA mirror use this same plan (bit-equality requirement)."""
-    for gh_pad in range(gh, gh + 65):
-        S = matmul_band_split(gh_pad, gh_pad * patch, cell_width)
-        if S is not None:
-            return gh_pad, S
-    return None
 
 
 class CellStats(NamedTuple):
@@ -90,10 +57,9 @@ class CellStats(NamedTuple):
 
 
 class CellMoments(NamedTuple):
-    """Raw per-cell moments, the backend-independent intermediate between
-    the pixel-level reduction (XLA block sums here, or the fused Pallas
-    depth kernel in ops/pallas_cellstats.py) and the shared gate/eigensolve
-    finalization. All shaped (gh, gw, ...)."""
+    """Raw per-cell moments, the intermediate between the pixel-level block
+    reductions and the gate/eigensolve finalization. All shaped
+    (gh, gw, ...)."""
 
     nr_valid: jax.Array      # (gh, gw) count of z > 0 points
     disc_h: jax.Array        # (gh, gw) mid-row depth discontinuities
@@ -145,6 +111,15 @@ def compute_cell_stats(points: jax.Array, image_height: int, image_width: int,
 
     All arithmetic in float32 on device; fully parallel over cells.
     """
+    P = min(config.patch_size, min(image_height, image_width))
+    return finalize_cell_stats(
+        compute_cell_moments(points, image_height, image_width, config), P, config)
+
+
+def compute_cell_moments(points: jax.Array, image_height: int, image_width: int,
+                         config: Config) -> CellMoments:
+    """points: (H*W, 3) organized cloud -> raw per-cell moments and gate
+    counts (the pixel-level half of compute_cell_stats)."""
     H, W = image_height, image_width
     P = min(config.patch_size, min(H, W))
     gh, gw = H // P, W // P
@@ -156,16 +131,11 @@ def compute_cell_stats(points: jax.Array, image_height: int, image_width: int,
         """(gh*P, gw*P) -> per-cell sum (gh, gw); reshape is a free view."""
         return jnp.sum(a.reshape(gh, P, gw, P), axis=(1, 3))
 
-    n = jnp.float32(P * P)
-
-    # --- validity gate ---
-    valid_thr = (P * P * 3) // config.min_pts_per_cell
+    # --- validity gate count ---
     nr_valid = blocks((z_img > 0).astype(jnp.float32))
-    has_valid = nr_valid >= valid_thr
 
     # --- depth continuity (carried-prev scans over strided slices) ---
     thr = jnp.float32(config.depth_discontinuity_threshold)
-    max_disc = config.max_number_depth_discontinuity
     mid = P * P // 2
 
     def scan_discontinuities(in_cell_indices):
@@ -193,42 +163,9 @@ def compute_cell_stats(points: jax.Array, image_height: int, image_width: int,
 
     disc_h = scan_discontinuities([mid + t for t in range(P)])
     disc_v = scan_discontinuities([P // 2 + t * P for t in range(P)])
-    continuous = (disc_h < max_disc) & (disc_v < max_disc)
 
     # --- PCA plane fit over ALL P*P points (zeros included) ---
-    plan = moments_band_plan(gh, P, gw * P)
-    if plan is not None:
-        # MXU segment-matmul moments with first-pixel anchoring — the same
-        # tiling/order as the fused Pallas kernel (bit-equal to it), and
-        # ~100x less λ_min rounding noise than the plain centered sums.
-        gh_pad, S = plan
-        if gh_pad != gh:
-            pad = ((0, (gh_pad - gh) * P), (0, 0))
-            xi, yi, zi = (jnp.pad(a, pad) for a in (x_img, y_img, z_img))
-        else:
-            xi, yi, zi = x_img, y_img, z_img
-        coord_sum, scatter = _moments_matmul(xi, yi, zi, P, gh_pad, gw, S)
-        coord_sum, scatter = coord_sum[:gh], scatter[:gh]
-    else:
-        # Small/odd grids (tiny frames): plain block reductions.
-        sx, sy, sz = blocks(x_img), blocks(y_img), blocks(z_img)
-        coord_sum = jnp.stack([sx, sy, sz], axis=-1)    # (gh, gw, 3)
-        mean_ = coord_sum / n
-
-        def bc(m):
-            """Broadcast per-cell scalar over its pixels: (gh,gw)->(ghP,gwP)."""
-            return jnp.broadcast_to(m[:, None, :, None], (gh, P, gw, P)).reshape(
-                gh * P, gw * P)
-
-        cx_, cy_, cz_ = (x_img - bc(mean_[..., 0]), y_img - bc(mean_[..., 1]),
-                         z_img - bc(mean_[..., 2]))
-        sxx, sxy, sxz = blocks(cx_ * cx_), blocks(cx_ * cy_), blocks(cx_ * cz_)
-        syy, syz, szz = blocks(cy_ * cy_), blocks(cy_ * cz_), blocks(cz_ * cz_)
-        scatter = jnp.stack([
-            jnp.stack([sxx, sxy, sxz], -1),
-            jnp.stack([sxy, syy, syz], -1),
-            jnp.stack([sxz, syz, szz], -1),
-        ], -2)                                          # (gh, gw, 3, 3)
+    coord_sum, scatter = cell_moments(x_img, y_img, z_img, P)
 
     # --- merge tolerance (cell diameter = first vs last pixel) ---
     first = pts[::P, ::P, :]
@@ -237,16 +174,12 @@ def compute_cell_stats(points: jax.Array, image_height: int, image_width: int,
     diam = jnp.sqrt(dd[..., 0] * dd[..., 0] + dd[..., 1] * dd[..., 1]
                     + dd[..., 2] * dd[..., 2])
 
-    moments = CellMoments(nr_valid=nr_valid, disc_h=disc_h, disc_v=disc_v,
-                          coord_sum=coord_sum, scatter=scatter, diam=diam)
-    return finalize_cell_stats(moments, P, config)
+    return CellMoments(nr_valid=nr_valid, disc_h=disc_h, disc_v=disc_v,
+                       coord_sum=coord_sum, scatter=scatter, diam=diam)
 
 
-def _moments_matmul(x_img, y_img, z_img, P: int, gh: int, gw: int, S: int):
-    """Per-cell (coord_sum, scatter) via MXU segment matmuls, bit-compatible
-    with the fused Pallas kernel (ops/pallas_cellstats.py:_kernel): the jnp
-    dots lower to the same MXU contractions Mosaic emits, over the same
-    row-band tiling (equality asserted in tests/test_pallas_cellstats.py).
+def cell_moments(x_img, y_img, z_img, P: int):
+    """Per-cell (coord_sum, scatter) as plain (gh, P, gw, P) block sums.
 
     Each cell's coordinates are anchored to its first pixel before the
     centered second moments: the scatter matrix is translation-invariant in
@@ -254,55 +187,38 @@ def _moments_matmul(x_img, y_img, z_img, P: int, gh: int, gw: int, S: int):
     absolute coordinates shrinks the f32 rounding noise in λ_min (and the
     fitted normal) by ~2 orders of magnitude. On noiseless data (ICL-NUIM)
     λ_min is pure rounding noise, so this is what stabilizes seed selection
-    — the P=4 conformance fix (BASELINE.md)."""
-    Hc, Wc = gh * P, gw * P
-    ghs, hcs = gh // S, Hc // S
+    — the P=4 conformance fix.
+
+    The mean-centering is folded algebraically:
+    Σ(xs-mx)(ys-my) = Σxs·ys - Σxs·Σys/n with mx = Σxs/n, so the pixels are
+    read once. The subtrahend is O(mean²/extent²) ~ 4x the result, which
+    costs ~2 of the bits the anchoring buys; the folded diagonal entries
+    are clamped at 0, where that rounding could otherwise leave them
+    slightly negative.
+    """
+    Hc, Wc = x_img.shape
+    gh, gw = Hc // P, Wc // P
     n = jnp.float32(P * P)
-    dot = functools.partial(jax.lax.dot, precision=jax.lax.Precision.HIGHEST,
-                            preferred_element_type=jnp.float32)
 
-    def block(rows, cols, transpose=False):
-        i = jax.lax.broadcasted_iota(jnp.int32, (rows, cols), 0)
-        j = jax.lax.broadcasted_iota(jnp.int32, (rows, cols), 1)
-        return ((i // P == j) if transpose else (j // P == i)).astype(jnp.float32)
+    def cells(a):                  # (gh*P, gw*P) -> (gh, P, gw, P), a view
+        return a.reshape(gh, P, gw, P)
 
-    Sv = block(ghs, hcs)                  # (ghs, hcs): sum rows per cell-row
-    Sh = block(Wc, gw, transpose=True)    # (Wc, gw): sum cols per cell-col
+    def bsum(a):                   # (gh, P, gw, P) -> (gh, gw)
+        return jnp.sum(a, axis=(1, 3))
 
-    def per_band(xb, yb, zb, axb, ayb, azb):
-        def bsum(a):                      # (hcs, Wc) -> (ghs, gw)
-            return dot(dot(Sv, a), Sh)
-
-        def bc(m):                        # exact per-cell broadcast
-            return jnp.broadcast_to(m[:, None, :, None],
-                                    (ghs, P, gw, P)).reshape(hcs, Wc)
-
-        sx, sy, sz = bsum(xb), bsum(yb), bsum(zb)
-        xs, ys, zs = xb - bc(axb), yb - bc(ayb), zb - bc(azb)
-        sxs, sys_, szs = bsum(xs), bsum(ys), bsum(zs)
-        # Mean-centering folded algebraically (round 5):
-        # bsum((xs-mx)(ys-my)) = bsum(xs*ys) - sxs*sys/n for per-cell
-        # means mx = sxs/n — the second centering pass and its 3 per-cell
-        # mean broadcasts disappear. Conditioning: the subtrahend is
-        # O(mean^2/extent^2) ~ 4x the result, costing ~2 of the ~7 bits
-        # of margin first-pixel anchoring buys (BASELINE.md history);
-        # validated by the same TUM/ICL conformance gates as the r2 fix.
-        return (sx, sy, sz,
-                bsum(xs * xs) - sxs * (sxs / n),
-                bsum(xs * ys) - sxs * (sys_ / n),
-                bsum(xs * zs) - sxs * (szs / n),
-                bsum(ys * ys) - sys_ * (sys_ / n),
-                bsum(ys * zs) - sys_ * (szs / n),
-                bsum(zs * zs) - szs * (szs / n))
-
-    ax, ay, az = x_img[::P, ::P], y_img[::P, ::P], z_img[::P, ::P]  # (gh, gw)
-    outs = jax.lax.map(
-        lambda t: per_band(*t),
-        (x_img.reshape(S, hcs, Wc), y_img.reshape(S, hcs, Wc),
-         z_img.reshape(S, hcs, Wc),
-         ax.reshape(S, ghs, gw), ay.reshape(S, ghs, gw), az.reshape(S, ghs, gw)))
-    sx, sy, sz, sxx, sxy, sxz, syy, syz, szz = [o.reshape(gh, gw) for o in outs]
-    coord_sum = jnp.stack([sx, sy, sz], -1)
+    x4, y4, z4 = cells(x_img), cells(y_img), cells(z_img)
+    xs = x4 - x4[:, :1, :, :1]
+    ys = y4 - y4[:, :1, :, :1]
+    zs = z4 - z4[:, :1, :, :1]
+    sxs, sys_, szs = bsum(xs), bsum(ys), bsum(zs)
+    zero = jnp.float32(0)
+    sxx = jnp.maximum(bsum(xs * xs) - sxs * (sxs / n), zero)
+    sxy = bsum(xs * ys) - sxs * (sys_ / n)
+    sxz = bsum(xs * zs) - sxs * (szs / n)
+    syy = jnp.maximum(bsum(ys * ys) - sys_ * (sys_ / n), zero)
+    syz = bsum(ys * zs) - sys_ * (szs / n)
+    szz = jnp.maximum(bsum(zs * zs) - szs * (szs / n), zero)
+    coord_sum = jnp.stack([bsum(x4), bsum(y4), bsum(z4)], -1)
     scatter = jnp.stack([
         jnp.stack([sxx, sxy, sxz], -1),
         jnp.stack([sxy, syy, syz], -1),

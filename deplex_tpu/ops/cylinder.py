@@ -2,8 +2,8 @@
 
 The cited CAPE paper (Proenca & Gao, IROS 2018) extracts cylinders as well
 as planes, but the reference implements planes only (SURVEY.md: "cylinder"
-appears nowhere in its code). deplex-tpu adds the cylinder stage TPU-
-natively, reusing the growing machinery:
+appears nowhere in its code). deplex-tpu adds the cylinder stage,
+reusing the growing machinery:
 
   * Candidate regions are growing ROUNDS that passed the size gate but
     FAILED the planarity-score gate (finalize_rounds rejects them for
@@ -36,6 +36,7 @@ from deplex_tpu.config import Config
 from deplex_tpu.ops.cellstats import CellStats
 from deplex_tpu.ops.eigh3x3 import eigh3x3_min
 from deplex_tpu.ops.growing import RoundData, _SIZE, _N
+from deplex_tpu.precision import HIGHEST
 
 
 class CylinderSegments(NamedTuple):
@@ -93,7 +94,7 @@ def extract_cylinders(stats: CellStats, rounds: RoundData, config: Config):
     means = stats.mean.reshape(-1, 3)
 
     # --- axis: smallest-eigenvalue direction of the normal covariance ---
-    ncov = jnp.einsum("rc,ci,cj->rij", onehot, normals, normals)
+    ncov = jnp.einsum("rc,ci,cj->rij", onehot, normals, normals, precision=HIGHEST)
     _, axis = eigh3x3_min(ncov)                             # (R_MAX, 3)
 
     # --- orthonormal basis (u, v) of the plane orthogonal to axis ---
@@ -104,8 +105,8 @@ def extract_cylinders(stats: CellStats, rounds: RoundData, config: Config):
     v = jnp.cross(axis, u)
 
     # --- project member centroids, Kasa circle fit per round ---
-    px = jnp.einsum("ci,ri->rc", means, u)                  # (R_MAX, cells)
-    py = jnp.einsum("ci,ri->rc", means, v)
+    px = jnp.einsum("ci,ri->rc", means, u, precision=HIGHEST)                  # (R_MAX, cells)
+    py = jnp.einsum("ci,ri->rc", means, v, precision=HIGHEST)
     w = onehot
     cnt = jnp.maximum(jnp.sum(w, axis=1), 1.0)
     # Center per round before forming the normal equations: raw projected
@@ -117,14 +118,14 @@ def extract_cylinders(stats: CellStats, rounds: RoundData, config: Config):
     py = (py - my_c[:, None]) * w
     b = px * px + py * py
     # Normal equations for [2cx, 2cy, r^2 - |c|^2] with design [x, y, 1].
-    Sxx = jnp.einsum("rc,rc,rc->r", w, px, px)
-    Sxy = jnp.einsum("rc,rc,rc->r", w, px, py)
-    Syy = jnp.einsum("rc,rc,rc->r", w, py, py)
-    Sx = jnp.einsum("rc,rc->r", w, px)
-    Sy = jnp.einsum("rc,rc->r", w, py)
-    Sb = jnp.einsum("rc,rc->r", w, b)
-    Sxb = jnp.einsum("rc,rc,rc->r", w, px, b)
-    Syb = jnp.einsum("rc,rc,rc->r", w, py, b)
+    Sxx = jnp.einsum("rc,rc,rc->r", w, px, px, precision=HIGHEST)
+    Sxy = jnp.einsum("rc,rc,rc->r", w, px, py, precision=HIGHEST)
+    Syy = jnp.einsum("rc,rc,rc->r", w, py, py, precision=HIGHEST)
+    Sx = jnp.einsum("rc,rc->r", w, px, precision=HIGHEST)
+    Sy = jnp.einsum("rc,rc->r", w, py, precision=HIGHEST)
+    Sb = jnp.einsum("rc,rc->r", w, b, precision=HIGHEST)
+    Sxb = jnp.einsum("rc,rc,rc->r", w, px, b, precision=HIGHEST)
+    Syb = jnp.einsum("rc,rc,rc->r", w, py, b, precision=HIGHEST)
     A = jnp.stack([
         jnp.stack([Sxx, Sxy, Sx], -1),
         jnp.stack([Sxy, Syy, Sy], -1),
@@ -142,7 +143,7 @@ def extract_cylinders(stats: CellStats, rounds: RoundData, config: Config):
     dist = jnp.sqrt(jnp.maximum((px - cx[:, None]) ** 2
                                 + (py - cy[:, None]) ** 2, 1e-12))
     res = (dist - radius[:, None]) ** 2
-    rmse = jnp.sqrt(jnp.einsum("rc,rc->r", w, res) / cnt)
+    rmse = jnp.sqrt(jnp.einsum("rc,rc->r", w, res, precision=HIGHEST) / cnt)
 
     ok = (candidate & jnp.isfinite(radius) & (radius > 0)
           & (rmse <= jnp.maximum(config.cylinder_rmse_max,
@@ -168,10 +169,10 @@ def extract_cylinders(stats: CellStats, rounds: RoundData, config: Config):
            ).astype(jnp.float32)                             # (R_MAX, MAXC)
     seg = CylinderSegments(
         nr_cylinders=nr,
-        axis=jnp.einsum("rm,ri->mi", sel, axis),
-        center=jnp.einsum("rm,ri->mi", sel, center3d),
-        radius=jnp.einsum("rm,r->m", sel, radius),
-        rmse=jnp.einsum("rm,r->m", sel, rmse),
-        size=jnp.einsum("rm,r->m", sel, size),
+        axis=jnp.einsum("rm,ri->mi", sel, axis, precision=HIGHEST),
+        center=jnp.einsum("rm,ri->mi", sel, center3d, precision=HIGHEST),
+        radius=jnp.einsum("rm,r->m", sel, radius, precision=HIGHEST),
+        rmse=jnp.einsum("rm,r->m", sel, rmse, precision=HIGHEST),
+        size=jnp.einsum("rm,r->m", sel, size, precision=HIGHEST),
     )
     return cyl_labels_map, seg

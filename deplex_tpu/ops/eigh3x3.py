@@ -1,14 +1,14 @@
 """Batched closed-form symmetric 3x3 eigendecomposition.
 
-TPU-native replacement for the reference's scalar dsyevh3 C routine
+Batched replacement for the reference's scalar dsyevh3 C routine
 (/root/reference/libs/dsyev/src/dsyevh3.c:31-130, dsyevc3.c:31-80): Cardano's
 analytic eigenvalues plus cross-product eigenvectors, vectorized over an
 arbitrary batch of 3x3 covariance matrices so every cell of the grid is
-solved simultaneously on the VPU instead of one dsyevh3 call per cell.
+solved simultaneously instead of one dsyevh3 call per cell.
 
 Differences from the reference, by design:
   * Batched over N matrices (leading axes arbitrary).
-  * Works in float32 on TPU; matrices are pre-scaled by their max |entry| for
+  * Works in float32; matrices are pre-scaled by their max |entry| for
     conditioning (scale-invariant for eigenvectors, eigenvalues rescaled).
   * The reference's iterative QL fallback (dsyevq3.c) for ill-conditioned
     cross products is replaced by choosing the best of the three available
@@ -30,13 +30,11 @@ def _eigvals_soa(a, b, c, d, e, f):
     """Cardano eigenvalues from the 6 distinct entries, ascending.
 
     SoA core: every operand/intermediate is a batch-major plane (no
-    trailing size-3 axes), so on TPU the whole computation stays in
-    (8, 128)-tiled elementwise fusions. The previous (..., 3, 3) form made
-    XLA lay out intermediates with 3-wide minor dims — (4, 128) tiles with
-    ~40x padding — and the eigensolve alone cost 30+ us/frame of pure
-    relayout traffic (profiled); this form is ~free. The ascending order
-    is an explicit min/mid/max network instead of jnp.sort (a 3-long sort
-    lowered to a real device sort, another profiled hotspot).
+    trailing size-3 axes), so the whole computation is elementwise and
+    fuses; no intermediate carries a 3-wide minor dimension. The ascending
+    order is an explicit min/mid/max network instead of jnp.sort (which
+    lowers a 3-long sort to a real device sort). The same code runs on
+    scalars inside the Triton merge kernel (ops/merge_triton.py).
 
     Mirrors dsyevc3.c:31-80 (same characteristic-polynomial formulation).
     """
@@ -67,7 +65,7 @@ def _eigvals_soa(a, b, c, d, e, f):
     hi = jnp.maximum(jnp.maximum(w0, w1), w2)
     # Median via a min/max swap network: returns one of the three computed
     # roots EXACTLY (a sum-minus-extremes form can be off by ulps and even
-    # land outside [lo, hi] — ADVICE r4), still sort/gather-free.
+    # land outside [lo, hi]), still sort/gather-free.
     mid = jnp.maximum(jnp.minimum(w0, w1),
                       jnp.minimum(jnp.maximum(w0, w1), w2))
     return lo, mid, hi
@@ -116,9 +114,8 @@ def eigh3x3_min_soa(xx, xy, xz, yy, yz, zz):
     """Smallest-eigenpair from the 6 distinct entries (batch-major planes).
 
     Returns ((w0, w1, w2), (vx, vy, vz)) — ascending eigenvalues and the
-    unit eigenvector of w0, all shaped like the inputs. This is the fast
-    layout on TPU; the (..., 3, 3) wrappers below pack/unpack at the
-    boundary only.
+    unit eigenvector of w0, all shaped like the inputs. The (..., 3, 3)
+    wrappers below pack/unpack at the boundary only.
     """
     scale = jnp.maximum(
         jnp.maximum(jnp.maximum(jnp.abs(xx), jnp.abs(yy)),
@@ -182,7 +179,7 @@ def eigh3x3(A: jax.Array):
 
 
 # ---------------------------------------------------------------------------
-# numpy twin (used by the serial oracle so oracle and TPU pipeline share the
+# numpy twin (used by the serial oracle so oracle and device pipeline share the
 # exact same eigensolver semantics; also handy for unit tests).
 # ---------------------------------------------------------------------------
 

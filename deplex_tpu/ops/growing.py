@@ -2,7 +2,7 @@
 
 The reference implements this as a serial loop of BFS flood fills with a
 mutable histogram (plane_extractor.cpp:297-392). The key observation that
-makes a TPU recast exact (not an approximation): the grown region of a seed
+makes a data-parallel recast exact (not an approximation): the grown region of a seed
 equals directed reachability from the seed over "admissibility" edges
     b -> c  admissible  iff  n_b . n_c >= min_cos
                         and (n_b . mu_c + d_b)^2 <= tol_c
@@ -10,14 +10,17 @@ restricted to unassigned planar cells — BFS order does not change this set,
 because a cell that fails the test from one popped neighbor is re-tested by
 every other popped neighbor (plane_extractor.cpp:372-387).
 
-Structure (shared with the Pallas fast path in ops/pallas_growing.py):
+Structure:
 
-  1. `grow_rounds` — the sequential while_loop: each round picks the
-     dominant histogram bin, seeds at its min-MSE cell, flood-fills, and
-     CONSUMES the region. The only outputs are a per-cell `round_map`
-     (which round consumed the cell) and packed per-round sufficient
-     statistics — deliberately NO eigensolves or gating inside the loop,
-     which keeps the sequential body to ~a hundred cheap vector ops.
+  1. The rounds loop: each round picks the dominant histogram bin, seeds at
+     its min-MSE cell, flood-fills, and CONSUMES the region. Its outputs are
+     a per-cell `round_map` (which round consumed the cell), each round's
+     seed and the round count; `region_sums` then recovers the per-round
+     sufficient statistics outside the loop — deliberately NO eigensolves
+     or gating inside it. `grow_rounds` is the plain XLA loop (the
+     reference, and the CPU path); on a GPU `grow_rounds_device` runs the
+     CUDA kernel of deplex_tpu/cuda/growing.cu, one thread block per frame,
+     which makes the same integer decisions.
   2. `finalize_rounds` — everything order-independent, vectorized over all
      rounds at once: batched plane fits, size/planarity gates, slot
      assignment by accept order (prefix sum), per-cell labels via one
@@ -42,6 +45,7 @@ from deplex_tpu.config import Config
 from deplex_tpu.ops.cellstats import CellStats
 from deplex_tpu.ops.eigh3x3 import eigh3x3_min
 from deplex_tpu.ops.histogram import histogram_counts, normal_bins
+from deplex_tpu.precision import HIGHEST
 
 
 class PlaneSegments(NamedTuple):
@@ -59,11 +63,12 @@ class PlaneSegments(NamedTuple):
 
 
 class RoundData(NamedTuple):
-    """Output contract of a growing loop (XLA or Pallas)."""
+    """Output contract of a growing loop (XLA or CUDA)."""
 
     round_map: jax.Array     # (gh, gw) int32 — round that consumed the cell, -1
     sums: jax.Array          # (R_MAX, 16) f32 — packed per-round statistics
     nr_rounds: jax.Array     # () int32
+    seeds: jax.Array         # (R_MAX,) int32 — flat seed cell per round, gh*gw
 
 # sums row layout: [n_pts, sum_x, sum_y, sum_z,
 #                   sc_xx, sc_xy, sc_xz, sc_yy, sc_yz, sc_zz,
@@ -90,12 +95,10 @@ def region_sums(round_map: jax.Array, seed_flat: jax.Array, stats: CellStats,
                 r_max: int) -> jax.Array:
     """Per-round sufficient statistics recovered from the consumption map.
 
-    The growing loop (XLA or Pallas) only needs to decide WHICH cells each
+    The growing loop (XLA or CUDA) only needs to decide WHICH cells each
     round consumed; the per-round moment sums are order-independent given
     `round_map`, so they are computed here OUTSIDE the sequential loop as
-    one-hot contractions (MXU matmuls) over all rounds at once. This removes
-    ~11 masked reductions per round from the loop body — the growing
-    kernel's former dominant cost.
+    one-hot contractions over all rounds at once.
 
     round_map: (gh, gw) int32 — round that consumed each cell, -1 for none.
     seed_flat: (r_max,) int32 — flat (row*gw+col) id of each round's seed
@@ -115,8 +118,7 @@ def region_sums(round_map: jax.Array, seed_flat: jax.Array, stats: CellStats,
     rids = jnp.arange(r_max, dtype=jnp.int32)
     onehot = rm[None, :] == rids[:, None]                      # (R, N)
     # Seed double-weight fused into the one (R, N) f32 operand the matmuls
-    # need anyway (values exactly 0/1/2 — bit-identical to materializing a
-    # separate seed matrix and adding; ADVICE r4 HBM-traffic note).
+    # need anyway (values exactly 0/1/2).
     is_seed = seed_flat[:, None] == jnp.arange(N, dtype=jnp.int32)[None, :]
     w = jnp.where(onehot, jnp.where(is_seed, f32(2.0), f32(1.0)), f32(0.0))
     size = jnp.sum(onehot, axis=1).astype(f32)
@@ -124,14 +126,12 @@ def region_sums(round_map: jax.Array, seed_flat: jax.Array, stats: CellStats,
     nr_pts = jnp.asarray(stats.nr_pts, f32)
     cs = stats.coord_sum.reshape(N, 3).astype(f32)
     mean = stats.mean.reshape(N, 3).astype(f32)
-    hi = jax.lax.Precision.HIGHEST
-
     n_tot = jnp.sum(w, axis=1) * nr_pts                        # (R,)
-    sum_tot = jnp.matmul(w, cs, precision=hi)                  # (R, 3)
+    sum_tot = jnp.matmul(w, cs, precision=HIGHEST)                  # (R, 3)
     mu = sum_tot / jnp.maximum(n_tot, 1.0)[:, None]
     # Broadcast each cell's round mean back to the cell (transpose one-hot);
     # unconsumed cells get 0 but carry zero weight everywhere.
-    mu_cell = jnp.matmul(onehot.astype(f32).T, mu, precision=hi)   # (N, 3)
+    mu_cell = jnp.matmul(onehot.astype(f32).T, mu, precision=HIGHEST)   # (N, 3)
     dmu = mean - mu_cell
     sc = stats.scatter.reshape(N, 3, 3).astype(f32)
     feat = jnp.stack([
@@ -142,7 +142,7 @@ def region_sums(round_map: jax.Array, seed_flat: jax.Array, stats: CellStats,
         sc[:, 1, 2] + nr_pts * dmu[:, 1] * dmu[:, 2],
         sc[:, 2, 2] + nr_pts * dmu[:, 2] * dmu[:, 2],
     ], axis=1)                                                 # (N, 6)
-    sc_tot = jnp.matmul(w, feat, precision=hi)                 # (R, 6)
+    sc_tot = jnp.matmul(w, feat, precision=HIGHEST)                 # (R, 6)
 
     return jnp.concatenate([
         n_tot[:, None], sum_tot, sc_tot, size[:, None],
@@ -222,14 +222,18 @@ def flood_fill(seed_mask: jax.Array, allowed: jax.Array, edges, hops_per_step: i
     return active
 
 
-def grow_rounds(stats: CellStats, config: Config) -> RoundData:
-    """The sequential consume-the-histogram loop (XLA reference path)."""
-    gh, gw = stats.planar.shape
+def grow_decisions(bins0: jax.Array, mse: jax.Array, edges, planar: jax.Array,
+                   config: Config):
+    """The sequential consume-the-histogram loop on its raw inputs.
+
+    bins0: (gh, gw) int32 histogram bin per cell, -1 for non-planar;
+    mse: (gh, gw) f32 seed priority; edges: admissibility_edges' dict;
+    planar: (gh, gw) bool. Returns (round_map, seeds, nr_rounds) — the
+    integer decisions the CUDA kernel reproduces bit for bit.
+    """
+    gh, gw = planar.shape
     R_MAX = config.max_region_growing_rounds
     nbins = config.histogram_bins_per_coord
-    edges = admissibility_edges(stats, config)
-    bins0 = normal_bins(stats.normal, stats.planar, nbins)
-
     cell_flat = jnp.arange(gh * gw).reshape(gh, gw)
 
     class LoopState(NamedTuple):
@@ -243,10 +247,10 @@ def grow_rounds(stats: CellStats, config: Config) -> RoundData:
 
     state0 = LoopState(
         bins=bins0,
-        unassigned=stats.planar,
+        unassigned=planar,
         round_map=jnp.full((gh, gw), -1, jnp.int32),
         seeds=jnp.full((R_MAX,), gh * gw, jnp.int32),
-        remaining=jnp.sum(stats.planar).astype(jnp.int32),
+        remaining=jnp.sum(planar).astype(jnp.int32),
         stop=jnp.bool_(False),
         rounds=jnp.int32(0),
     )
@@ -262,7 +266,7 @@ def grow_rounds(stats: CellStats, config: Config) -> RoundData:
         stop = hist[mf_bin] < config.min_region_growing_candidate_size
 
         # 2. Seed: min cell MSE among candidates (first-min tie-break).
-        seed_mse = jnp.where(candidates, stats.mse, jnp.inf)
+        seed_mse = jnp.where(candidates, mse, jnp.inf)
         seed_id = jnp.argmin(seed_mse.reshape(-1))
         seed_mask = cell_flat == seed_id.reshape(())
 
@@ -286,9 +290,17 @@ def grow_rounds(stats: CellStats, config: Config) -> RoundData:
                          rounds=s.rounds + 1)
 
     final = jax.lax.while_loop(cond, body, state0)
-    sums = region_sums(final.round_map, final.seeds, stats, R_MAX)
-    return RoundData(round_map=final.round_map, sums=sums,
-                     nr_rounds=final.rounds)
+    return final.round_map, final.seeds, final.rounds
+
+
+def grow_rounds(stats: CellStats, config: Config) -> RoundData:
+    """The rounds loop in plain XLA (the reference path)."""
+    bins0 = normal_bins(stats.normal, stats.planar, config.histogram_bins_per_coord)
+    round_map, seeds, nr_rounds = grow_decisions(
+        bins0, stats.mse, admissibility_edges(stats, config), stats.planar, config)
+    sums = region_sums(round_map, seeds, stats, config.max_region_growing_rounds)
+    return RoundData(round_map=round_map, sums=sums, nr_rounds=nr_rounds,
+                     seeds=seeds)
 
 
 def finalize_rounds(rounds: RoundData, config: Config):
@@ -319,25 +331,25 @@ def finalize_rounds(rounds: RoundData, config: Config):
     accept = accept & (slot < MAXP)
     nr_planes = jnp.sum(accept).astype(jnp.int32)
 
-    # Per-cell labels: round -> slot+1 (0 for rejected/unconsumed). One-hot
-    # contraction, not lut[round_map]: a grid-sized gather costs ~50us on
-    # TPU while the (gh*gw, R_MAX+1) one-hot matvec runs at vector speed.
+    # Per-cell labels: round -> slot+1 (0 for rejected/unconsumed), as a
+    # one-hot contraction (exact: labels are small integers).
     label_of_round = jnp.where(accept, slot + 1, 0).astype(jnp.int32)
     lut = jnp.concatenate([jnp.zeros(1, jnp.int32), label_of_round]).astype(jnp.float32)
     oh = (rounds.round_map[..., None] + 1 == jnp.arange(R_MAX + 1, dtype=jnp.int32))
-    labels_map = jnp.einsum("ghk,k->gh", oh.astype(jnp.float32), lut).astype(jnp.int32)
+    labels_map = jnp.einsum("ghk,k->gh", oh.astype(jnp.float32), lut,
+                            precision=HIGHEST).astype(jnp.int32)
 
     # Segment table via one-hot round->slot contraction (dup-free scatter).
     onehot = (accept[:, None] & (slot[:, None] == jnp.arange(MAXP)[None, :])
               ).astype(jnp.float32)                          # (R_MAX, MAXP)
-    seg_n = jnp.einsum("rm,r->m", onehot, sums[:, _N])
-    seg_sum = jnp.einsum("rm,ri->mi", onehot, coord_sum)
-    seg_scatter = jnp.einsum("rm,rij->mij", onehot, scatter)
-    seg_normal = jnp.einsum("rm,ri->mi", onehot, normal)
-    seg_mean = jnp.einsum("rm,ri->mi", onehot, mean)
-    seg_d = jnp.einsum("rm,r->m", onehot, d)
-    seg_mse = jnp.einsum("rm,r->m", onehot, mse)
-    seg_score = jnp.einsum("rm,r->m", onehot, score)
+    seg_n = jnp.einsum("rm,r->m", onehot, sums[:, _N], precision=HIGHEST)
+    seg_sum = jnp.einsum("rm,ri->mi", onehot, coord_sum, precision=HIGHEST)
+    seg_scatter = jnp.einsum("rm,rij->mij", onehot, scatter, precision=HIGHEST)
+    seg_normal = jnp.einsum("rm,ri->mi", onehot, normal, precision=HIGHEST)
+    seg_mean = jnp.einsum("rm,ri->mi", onehot, mean, precision=HIGHEST)
+    seg_d = jnp.einsum("rm,r->m", onehot, d, precision=HIGHEST)
+    seg_mse = jnp.einsum("rm,r->m", onehot, mse, precision=HIGHEST)
+    seg_score = jnp.einsum("rm,r->m", onehot, score, precision=HIGHEST)
 
     segments = PlaneSegments(nr_planes=nr_planes, n=seg_n, coord_sum=seg_sum,
                              scatter=seg_scatter, normal=seg_normal,
@@ -346,23 +358,64 @@ def finalize_rounds(rounds: RoundData, config: Config):
     return labels_map, segments
 
 
+def pack_flags(edges, planar: jax.Array) -> jax.Array:
+    """Per-cell uint8 flags for the CUDA kernel: bits 0-3 are the
+    admissibility edges from up, down, left and right, bit 4 is `planar`."""
+    f = planar.astype(jnp.uint8) << 4
+    for bit, name in enumerate(("from_up", "from_down", "from_left", "from_right")):
+        f = f | (edges[name].astype(jnp.uint8) << bit)
+    return f
+
+
+def _grow_rounds_call(bins, mse, flags, config: Config):
+    """The CUDA kernel as a JAX operation: (round_map, seeds, nr_rounds).
+
+    Leading batch axes are the kernel's own (one thread block per frame),
+    so under vmap the call is made once for the whole batch."""
+    from deplex_tpu import cuda
+
+    if cuda.has_gpu():
+        cuda.register()
+    gh, gw = bins.shape
+    r_max = config.max_region_growing_rounds
+    i32 = jnp.int32
+    round_map, seeds, nr_rounds, _ = jax.ffi.ffi_call(
+        "deplex_grow_rounds",
+        (jax.ShapeDtypeStruct((gh, gw), i32),
+         jax.ShapeDtypeStruct((r_max,), i32),
+         jax.ShapeDtypeStruct((), i32),
+         jax.ShapeDtypeStruct((gh * gw,), jnp.uint16)),   # BFS queue scratch
+        vmap_method="broadcast_all",
+    )(bins.astype(i32), mse.astype(jnp.float32), flags,
+      r_max=r_max, nbins2=config.histogram_bins_per_coord ** 2,
+      min_candidates=config.min_region_growing_candidate_size)
+    return round_map, seeds, nr_rounds
+
+
+def grow_rounds_cuda(stats: CellStats, config: Config) -> RoundData:
+    """`grow_rounds` on the CUDA kernel; the same RoundData, bit for bit in
+    round_map, seeds and nr_rounds. The edges, the bins and region_sums
+    stay in XLA."""
+    nbins = config.histogram_bins_per_coord
+    bins = normal_bins(stats.normal, stats.planar, nbins)
+    flags = pack_flags(admissibility_edges(stats, config), stats.planar)
+    round_map, seeds, nr_rounds = _grow_rounds_call(bins, stats.mse, flags, config)
+    sums = region_sums(round_map, seeds, stats, config.max_region_growing_rounds)
+    return RoundData(round_map=round_map, sums=sums, nr_rounds=nr_rounds,
+                     seeds=seeds)
+
+
+def grow_rounds_device(stats: CellStats, config: Config) -> RoundData:
+    """The rounds loop for the platform it is lowered for: the CUDA kernel
+    on a GPU, the XLA loop elsewhere."""
+    return jax.lax.platform_dependent(
+        stats, cuda=lambda s: grow_rounds_cuda(s, config),
+        default=lambda s: grow_rounds(s, config))
+
+
 def grow_planes(stats: CellStats, config: Config):
     """Full region-growing stage: rounds loop + vectorized finalize.
 
     labels_map value k > 0 means plane slot k-1 in the returned PlaneSegments.
-    Dispatches to the Pallas kernel for grids that fit its VMEM budget when
-    enabled (config.use_pallas_growing: True / False / None = auto).
     """
-    use_pallas = config.use_pallas_growing
-    if use_pallas is None or use_pallas:
-        from deplex_tpu.ops.pallas_growing import grow_rounds_pallas, pallas_supported
-
-        if pallas_supported(stats.planar.shape, config):
-            rounds = grow_rounds_pallas(stats, config)
-            return finalize_rounds(rounds, config)
-        if use_pallas:
-            raise ValueError(
-                f"use_pallas_growing=True but grid {stats.planar.shape} "
-                "exceeds the kernel's VMEM budget")
-    rounds = grow_rounds(stats, config)
-    return finalize_rounds(rounds, config)
+    return finalize_rounds(grow_rounds_device(stats, config), config)

@@ -1,6 +1,6 @@
 """Stage 2 — spherical normals histogram for seed selection.
 
-TPU-native equivalent of NormalsHistogram (normals_histogram.cpp:21-72):
+Vectorized equivalent of NormalsHistogram (normals_histogram.cpp:21-72):
 the per-cell bin assignment is one vectorized pass; the mutable histogram of
 the serial code (decremented as cells are consumed) is represented by the
 per-cell `bins` array alone — a round's histogram is recomputed as a cheap
@@ -41,9 +41,10 @@ def normal_bins(normal: jax.Array, planar: jax.Array, nr_bins: int) -> jax.Array
 def histogram_counts(bins: jax.Array, nr_bins: int) -> jax.Array:
     """Histogram over live (bin >= 0) cells -> (nr_bins^2,) int32.
 
-    Computed as a dense one-hot reduction rather than a scatter-add: TPU
-    scatters with duplicate indices serialize, while the (cells, bins)
-    equality mask + sum fuses into a fast VPU reduction.
+    A dense (cells, bins) equality mask + sum, which XLA fuses into one
+    reduction; this is the XLA reference loop's histogram (the CUDA kernel
+    keeps its histogram in shared memory and decrements it as cells are
+    consumed).
     """
     flat = bins.reshape(-1)
     size = nr_bins * nr_bins

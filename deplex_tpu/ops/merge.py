@@ -1,6 +1,6 @@
 """Stage 4 — merging of adjacent compatible plane segments.
 
-TPU-native equivalent of findMergedLabels + getConnectedComponents
+Data-parallel equivalent of findMergedLabels + getConnectedComponents
 (plane_extractor.cpp:394-453). The adjacency matrix is built with two
 shifted comparisons of the cell label map (the exact stencil of
 getConnectedComponents — note the reference scans rows [0, R-2] and columns
@@ -13,6 +13,10 @@ of the row (normal_/d_ are only refit after the row completes,
 plane_extractor.cpp:422) and absorbed columns' stats are never re-read in the
 same row — so the inner loop vectorizes exactly: one masked reduction per
 row. Only the MAXP-row outer loop stays sequential (it is tiny).
+
+`merge_planes` is the plain XLA loop (the reference, and the CPU path); on a
+GPU `merge_planes_device` runs the Triton kernel of ops/merge_triton.py, one
+program per frame, which computes the same rows.
 """
 
 from __future__ import annotations
@@ -22,13 +26,14 @@ import jax.numpy as jnp
 
 from deplex_tpu.config import Config
 from deplex_tpu.ops.growing import PlaneSegments, _fit_plane
+from deplex_tpu.precision import HIGHEST
 
 
 def pair_adjacency(x: jax.Array, y: jax.Array, max_planes: int) -> jax.Array:
     """(MAXP, MAXP) bool: A[i, j] = any position with (x == i+1, y == j+1).
 
-    Dense one-hot contraction instead of a scatter (TPU scatters with
-    duplicate indices serialize); label 0 and x == y pairs are excluded.
+    Dense one-hot contraction (exact: 0/1 products, integer counts); label 0
+    and x == y pairs are excluded.
     """
     ids = jnp.arange(1, max_planes + 1, dtype=x.dtype)
     m = (x > 0) & (y > 0) & (x != y)
@@ -36,7 +41,7 @@ def pair_adjacency(x: jax.Array, y: jax.Array, max_planes: int) -> jax.Array:
     yf = jnp.where(m, y, 0).reshape(-1)
     ox = (xf[:, None] == ids).astype(jnp.float32)
     oy = (yf[:, None] == ids).astype(jnp.float32)
-    return (ox.T @ oy) > 0
+    return jnp.matmul(ox.T, oy, precision=HIGHEST) > 0
 
 
 def plane_adjacency(labels_map: jax.Array, max_planes: int) -> jax.Array:
@@ -57,6 +62,18 @@ def merge_planes(labels_map: jax.Array, segments: PlaneSegments, config: Config)
     """
     assoc = plane_adjacency(labels_map, config.max_planes)
     return merge_planes_from_adjacency(assoc, segments, config)
+
+
+def merge_planes_device(labels_map: jax.Array, segments: PlaneSegments,
+                        config: Config):
+    """`merge_planes` for the platform it is lowered for: the Triton kernel
+    on a GPU, the XLA loop elsewhere."""
+    from deplex_tpu.ops.merge_triton import merge_planes_triton
+
+    return jax.lax.platform_dependent(
+        labels_map, segments,
+        cuda=lambda lm, sg: merge_planes_triton(lm, sg, config),
+        default=lambda lm, sg: merge_planes(lm, sg, config))
 
 
 def merge_planes_from_adjacency(assoc: jax.Array, segments: PlaneSegments,
@@ -89,7 +106,7 @@ def merge_planes_from_adjacency(assoc: jax.Array, segments: PlaneSegments,
 
         w = passing.astype(jnp.float32)
         add_n = jnp.sum(w * n)
-        add_sum = jnp.einsum("p,pi->i", w, coord_sum)
+        add_sum = jnp.einsum("p,pi->i", w, coord_sum, precision=HIGHEST)
         new_n = n[pid] + add_n
         new_sum = coord_sum[pid] + add_sum
         mu = new_sum / jnp.maximum(new_n, 1.0)
@@ -97,8 +114,9 @@ def merge_planes_from_adjacency(assoc: jax.Array, segments: PlaneSegments,
         # members = representative + passing columns.
         w_all = w.at[pid].add(1.0)
         dmu = coord_sum / jnp.maximum(n, 1.0)[:, None] - mu
-        new_scatter = (jnp.einsum("p,pij->ij", w_all, scatter)
-                       + jnp.einsum("p,p,pi,pj->ij", w_all, n, dmu, dmu))
+        new_scatter = (jnp.einsum("p,pij->ij", w_all, scatter, precision=HIGHEST)
+                       + jnp.einsum("p,p,pi,pj->ij", w_all, n, dmu, dmu,
+                                    precision=HIGHEST))
 
         n = jnp.where(expanded, n.at[pid].set(new_n), n)
         coord_sum = jnp.where(expanded, coord_sum.at[pid].set(new_sum), coord_sum)
@@ -140,17 +158,16 @@ def merge_planes_from_adjacency(assoc: jax.Array, segments: PlaneSegments,
 def apply_label_lut(labels_map: jax.Array, merge_labels: jax.Array) -> jax.Array:
     """(gh, gw) cell labels -> merged cell labels, 0 preserved.
 
-    One-hot contraction instead of lut[labels_map]: a 3k-element gather costs
-    ~50us on TPU (serialized loads), the equivalent (gh*gw, MAXP+1) one-hot
-    matvec runs at vector speed. Exact: labels <= MAXP are integers well
-    under f32's 2^24.
+    A (gh*gw, MAXP+1) one-hot matvec. Exact: labels <= MAXP are integers
+    well under f32's 2^24.
     """
     maxp = merge_labels.shape[0]
     lut = jnp.concatenate(
         [jnp.zeros(1, jnp.int32), merge_labels.astype(jnp.int32) + 1]
     ).astype(jnp.float32)
     oh = (labels_map[..., None] == jnp.arange(maxp + 1, dtype=labels_map.dtype))
-    return jnp.einsum("ghk,k->gh", oh.astype(jnp.float32), lut).astype(jnp.int32)
+    return jnp.einsum("ghk,k->gh", oh.astype(jnp.float32), lut,
+                      precision=HIGHEST).astype(jnp.int32)
 
 
 def rasterize_labels(labels_map: jax.Array, merge_labels: jax.Array,
@@ -161,10 +178,10 @@ def rasterize_labels(labels_map: jax.Array, merge_labels: jax.Array,
     Remainder pixels (beyond gh*P, gw*P) get label 0 — the reference indexes
     out of bounds there (UB); all shipped data is exactly divisible.
 
-    The patch expansion runs as two one-hot matmuls on the MXU (in bf16 —
-    exact for labels <= 255): P=10 blocks don't align with 128-lane tiles,
-    so a repeat/broadcast-reshape lowers to a 307k-element gather (~3x
-    slower measured on v5e).
+    The patch expansion runs as two one-hot matmuls in bf16. That is exact
+    for labels <= 255: every product is a one-hot 0/1 times an integer that
+    bf16 holds exactly, and each output sums exactly one such product, so no
+    precision setting is needed.
     """
     gh, gw = labels_map.shape
     P = patch_size

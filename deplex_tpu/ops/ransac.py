@@ -1,6 +1,6 @@
 """Stage 6 — batched RANSAC plane refinement.
 
-TPU-native equivalent of RTL::PlaneRANSAC (libs/rtl/include/rtl/RANSAC.hpp:25-98,
+Batched equivalent of RTL::PlaneRANSAC (libs/rtl/include/rtl/RANSAC.hpp:25-98,
 Plane.hpp:13-56): ALL ransac_max_iterations hypotheses per plane are
 generated and scored in one shot (two matmuls per plane), then the
 reference's sequential stopping rule is reproduced exactly on the score
@@ -34,6 +34,7 @@ import jax
 import jax.numpy as jnp
 
 from deplex_tpu.config import Config
+from deplex_tpu.precision import HIGHEST
 
 
 def reference_stop_winner(loss: jax.Array, n_points: jax.Array,
@@ -195,11 +196,9 @@ def refine_labels(points: jax.Array, labels: jax.Array, config: Config,
         # RANSAC.hpp:34) by expanding per-cell hypothesis params over the
         # free (gh, P, gw, P) view: one elementwise pass of N*Kc work per
         # chunk covers ALL planes, vs the per-plane form's MAXP passes of
-        # N*Kc each (measured 66.9 ms/frame at the shipped K=1000 config;
-        # the per-plane (N,3)x(3,Kc) matmuls also run at 3/128 MXU
-        # contraction utilization, and their bf16 default precision is too
-        # coarse to rank |err| < 1-unit thresholds of 5e4-scale inputs —
-        # the elementwise form is exact f32).
+        # N*Kc each. The elementwise form is also exact f32, where a
+        # (N,3)x(3,Kc) product at reduced precision could not rank
+        # |err| < 1-unit thresholds of 5e4-scale inputs.
         n_all, d_all = jax.vmap(per_plane)(plane_ids, keys)  # (MAXP,K,3)
         n_all, d_all = jax.vmap(pad_hyp)(n_all, d_all)
         n_r = n_all.reshape(MAXP, S, Kc, 3)
@@ -214,16 +213,15 @@ def refine_labels(points: jax.Array, labels: jax.Array, config: Config,
         # (gh, gw, MAXP) one-hot of each cell's plane id (0 = none).
         oh = (cell_labels[..., None] == plane_ids[None, None, :]
               ).astype(jnp.float32)
-        cells_per_plane = jnp.einsum("ghp->p", oh)
+        cells_per_plane = jnp.einsum("ghp->p", oh, precision=HIGHEST)
         n_pts_plane = cells_per_plane * PP                   # (MAXP,)
         target = ratio * n_pts_plane
-        hi = jax.lax.Precision.HIGHEST   # exact param selection (one-hot)
 
         def chunk_losses(s):
             nck = n_r[:, s]                                  # (MAXP,Kc,3)
             dck = d_r[:, s]                                  # (MAXP,Kc)
-            nsel = jnp.einsum("ghp,pki->ghki", oh, nck, precision=hi)
-            dsel = jnp.einsum("ghp,pk->ghk", oh, dck, precision=hi)
+            nsel = jnp.einsum("ghp,pki->ghki", oh, nck, precision=HIGHEST)
+            dsel = jnp.einsum("ghp,pk->ghk", oh, dck, precision=HIGHEST)
             # err over (gh, P, gw, P, Kc); sanitized degenerate models
             # (pad_hyp) give |err| ~ 1e30 -> outlier everywhere.
             e = (x4[..., None] * nsel[:, None, :, None, :, 0]
@@ -233,7 +231,7 @@ def refine_labels(points: jax.Array, labels: jax.Array, config: Config,
             out = (~(jnp.abs(e) < thr)).astype(jnp.float32)
             cell_out = jnp.sum(out, axis=(1, 3))             # (gh,gw,Kc)
             # Cells of label 0 carry no one-hot row: excluded exactly.
-            return jnp.einsum("ghp,ghk->pk", oh, cell_out, precision=hi)
+            return jnp.einsum("ghp,ghk->pk", oh, cell_out, precision=HIGHEST)
 
         def cond(c):
             s, reached, *_ = c
@@ -281,17 +279,17 @@ def refine_labels(points: jax.Array, labels: jax.Array, config: Config,
             target = ratio * n_p
 
             def chunk_loss(s):
-                # (N, Kc) distances via one matmul (HIGHEST: bf16 default
+                # (N, Kc) distances via one matmul (HIGHEST: a reduced
                 # precision cannot rank |err| < 1-unit thresholds of
                 # 5e4-scale coordinates), outliers counted by a second.
                 # The negated-< form keeps any non-finite distance an
                 # outlier (defense in depth on top of pad_hyp's
                 # sanitization).
                 err = jax.lax.dot(pts, n_ch[s].T,
-                                  precision=jax.lax.Precision.HIGHEST) \
+                                  precision=HIGHEST) \
                     + d_ch[s][None, :]
                 outlier = (~(jnp.abs(err) < thr)).astype(jnp.float32)
-                return mask @ outlier                       # (Kc,)
+                return jnp.matmul(mask, outlier, precision=HIGHEST)  # (Kc,)
 
             def cond(c):
                 s, reached, run_best, best_loss, best_k = c

@@ -3,7 +3,7 @@
 Re-derives, stage by stage, the observable behavior of the reference
 pipeline (see /root/reference/cpp/deplex/src/deplex/plane_extractor.cpp:187-283)
 in plain numpy.  Each function notes the file:line of the behavior it mirrors.
-Used by tests to validate the TPU pipeline and the stored goldens; never on
+Used by tests to validate the device pipeline and the stored goldens; never on
 the hot path.
 """
 
@@ -287,3 +287,87 @@ def extract_planes_oracle(points: np.ndarray, image_height: int, image_width: in
                         "plane_segments": plane_segments, "merge_labels": merge_labels,
                         "bins": bins}
     return labels
+
+
+def cell_moments_oracle(points: np.ndarray, image_height: int, image_width: int,
+                        config: Config) -> dict:
+    """Float64 per-cell moments and gate counts of ops/cellstats.py's
+    compute_cell_moments, by the two-pass centered definition
+    (cell_segment_stat.cpp:29-56, cell_segment.cpp:21-97)."""
+    H, W = image_height, image_width
+    P = min(config.patch_size, min(H, W))
+    gh, gw = H // P, W // P
+    pts = np.asarray(points, np.float64).reshape(H, W, 3)[:gh * P, :gw * P]
+    cells = pts.reshape(gh, P, gw, P, 3).transpose(0, 2, 1, 3, 4).reshape(
+        gh, gw, P * P, 3)
+    z = cells[..., 2]
+    coord_sum = cells.sum(axis=2)
+    c = cells - coord_sum[:, :, None, :] / (P * P)
+    scatter = np.einsum("ghki,ghkj->ghij", c, c)
+
+    def walk(idx):
+        prev = z[:, :, idx[0]].copy()
+        disc = np.zeros((gh, gw), np.int64)
+        for i in idx:
+            curr = z[:, :, i]
+            pos = curr > 0
+            cont = pos & (np.abs(curr - prev) < config.depth_discontinuity_threshold)
+            prev = np.where(cont, curr, prev)
+            disc += pos & ~cont
+        return disc
+
+    mid = P * P // 2
+    diam = np.linalg.norm(cells[:, :, 0] - cells[:, :, -1], axis=-1)
+    return {"nr_valid": (z > 0).sum(axis=2),
+            "disc_h": walk([mid + t for t in range(P)]),
+            "disc_v": walk([P // 2 + t * P for t in range(P)]),
+            "coord_sum": coord_sum, "scatter": scatter, "diam": diam}
+
+
+def grow_rounds_oracle(bins: np.ndarray, mse: np.ndarray, edges: dict,
+                       planar: np.ndarray, config: Config):
+    """Serial breadth-first region growing over given per-cell inputs.
+
+    The integer decisions of ops/growing.py:grow_decisions (and of the CUDA
+    kernel) replayed one cell at a time like the reference's growSeed
+    (plane_extractor.cpp:297-392): dominant histogram bin (first max), its
+    least-MSE cell as seed (first min), BFS over the admissibility edges
+    within the unassigned cells. Returns (round_map, seeds, nr_rounds).
+    """
+    gh, gw = planar.shape
+    G = gh * gw
+    nb2 = config.histogram_bins_per_coord ** 2
+    bins = np.where(planar, np.asarray(bins).reshape(gh, gw), -1).reshape(-1).copy()
+    mse = np.asarray(mse, np.float32).reshape(-1)
+    unassigned = np.asarray(planar).reshape(-1).copy()
+    frm = {k: np.asarray(v).reshape(-1) for k, v in edges.items()}
+    hist = np.bincount(bins[(bins >= 0) & (bins < nb2)], minlength=nb2)
+    round_map = np.full(G, -1, np.int32)
+    r_max = config.max_region_growing_rounds
+    seeds = np.full(r_max, G, np.int32)
+    remaining, rounds, stop = int(unassigned.sum()), 0, False
+    while remaining > 0 and not stop and rounds < r_max:
+        mf = int(np.argmax(hist))
+        stop = hist[mf] < config.min_region_growing_candidate_size
+        seed = int(np.argmin(np.where(bins == mf, mse, np.inf)))
+        seeds[rounds] = seed
+        if not stop and unassigned[seed]:
+            unassigned[seed] = False
+            queue = collections.deque([seed])
+            while queue:
+                c = queue.popleft()
+                r, col = divmod(c, gw)
+                if 0 <= bins[c] < nb2:
+                    hist[bins[c]] -= 1
+                bins[c] = -1
+                round_map[c] = rounds
+                remaining -= 1
+                for nb, ok in ((c + gw, r + 1 < gh and frm["from_up"][c + gw]),
+                               (c - gw, r > 0 and frm["from_down"][c - gw]),
+                               (c + 1, col + 1 < gw and frm["from_left"][c + 1]),
+                               (c - 1, col > 0 and frm["from_right"][c - 1])):
+                    if ok and unassigned[nb]:
+                        unassigned[nb] = False
+                        queue.append(nb)
+        rounds += 1
+    return round_map.reshape(gh, gw), seeds, rounds

@@ -1,15 +1,16 @@
 """Frame-batched and device-sharded plane extraction.
 
 The reference has no batch dimension at all (one serial process() per frame,
-examples/process_sequence.cpp:31-43). On TPU, frames are embarrassingly
-parallel, so throughput comes from:
+examples/process_sequence.cpp:31-43). Frames are independent, so throughput
+comes from:
 
-  * vmap over a frame batch within one chip (amortizes the sequential
-    region-growing rounds: the while_loop trip count becomes the max over
-    the batch while every per-round op stays tiny), and
-  * sharding the batch axis over a jax.sharding.Mesh for multi-chip /
-    multi-host scale-out — no collectives are needed on the extraction path,
-    so scaling rides data placement alone (ICI/DCN only move inputs).
+  * vmap over a frame batch within one device: the growing and merge kernels
+    take the batch as their own grid (one thread block or program per
+    frame), so frames retire independently, and
+  * sharding the batch axis over a 1-D "data" mesh with shard_map — no
+    collectives are needed on the extraction path, and each device runs the
+    single-device program on its shard (XLA cannot partition a custom call,
+    so the kernels must see local shards).
 """
 
 from __future__ import annotations
@@ -25,57 +26,21 @@ from deplex_tpu.config import Config
 
 
 def _labels_from_stats_batch(stats, H: int, W: int, config: Config):
-    """Batched stages 3-5: CellStats with leading B axis -> (B, H*W) labels.
+    """Batched stages 3-5: CellStats with leading B axis -> (B, H*W) labels,
+    plus the merged cell labels when RANSAC refinement follows."""
+    from deplex_tpu.ops.growing import grow_planes
+    from deplex_tpu.ops.merge import (apply_label_lut, merge_planes_device,
+                                      rasterize_labels)
 
-    Shared tail of the depth and points batch paths: the STACKED-BATCH
-    Pallas growing kernel when it fits VMEM (all frames' rounds advance
-    together, ops/pallas_growing.py:_kernel_batched) and the batched Pallas
-    merge kernel, with exact XLA fallbacks.
-    """
-    from deplex_tpu.ops.growing import finalize_rounds, grow_planes
-    from deplex_tpu.ops.merge import merge_planes, rasterize_labels
-    from deplex_tpu.ops.pallas_growing import (grow_rounds_pallas_batched,
-                                               pallas_batched_chunk)
-    from deplex_tpu.ops.pallas_merge import (merge_planes_pallas_batched,
-                                             pallas_merge_supported)
-
-    B, gh, gw = stats.planar.shape
     P = min(config.patch_size, min(H, W))
-    use_pallas = config.use_pallas_growing
-    chunk = pallas_batched_chunk(B, (gh, gw), config) \
-        if (use_pallas or use_pallas is None) else None
-    if chunk == B:
-        rounds = grow_rounds_pallas_batched(stats, config)
-        lm_seg = jax.vmap(lambda r: finalize_rounds(r, config))(rounds)
-    elif chunk is not None:
-        # Batch-size negotiation: the full batch misses the stacked kernel's
-        # VMEM plan, but a sub-batch fits — run the kernel over B/chunk
-        # sequential chunks rather than losing its per-round amortization.
-        # Labels match the one-shot call exactly; round sums agree to f32
-        # reduction-order tolerance (the off-core region_sums reduces over
-        # a canvas whose packing depends on the chunk size).
-        rounds = jax.lax.map(
-            lambda s: grow_rounds_pallas_batched(s, config),
-            jax.tree.map(
-                lambda a: a.reshape(B // chunk, chunk, *a.shape[1:]), stats))
-        rounds = jax.tree.map(
-            lambda a: a.reshape(B, *a.shape[2:]), rounds)
-        lm_seg = jax.vmap(lambda r: finalize_rounds(r, config))(rounds)
-    else:
-        lm_seg = jax.vmap(lambda s: grow_planes(s, config))(stats)
-    labels_map, segments = lm_seg
-    if (use_pallas or use_pallas is None) and pallas_merge_supported(config):
-        merge_labels, _ = merge_planes_pallas_batched(labels_map, segments, config)
-    else:
-        merge_labels, _ = jax.vmap(lambda lm, sg: merge_planes(lm, sg, config))(
-            labels_map, segments)
+    labels_map, segments = jax.vmap(lambda s: grow_planes(s, config))(stats)
+    merge_labels, _ = jax.vmap(
+        lambda lm, sg: merge_planes_device(lm, sg, config))(labels_map, segments)
     labels = jax.vmap(
         lambda lm, ml: rasterize_labels(lm, ml, H, W, P))(labels_map, merge_labels)
     if not config.ransac_refinement:
         return labels, None
-    from deplex_tpu.ops.merge import apply_label_lut
-    cell_lab = jax.vmap(apply_label_lut)(labels_map, merge_labels)
-    return labels, cell_lab
+    return labels, jax.vmap(apply_label_lut)(labels_map, merge_labels)
 
 
 def _refine_batch(points, labels, cell_lab, H: int, W: int, config: Config):
@@ -90,12 +55,14 @@ def _refine_batch(points, labels, cell_lab, H: int, W: int, config: Config):
 
 @functools.partial(jax.jit, static_argnames=("image_height", "image_width", "config"))
 def extract_planes_batch_jit(points, *, image_height: int, image_width: int, config: Config):
-    """points: (B, H*W, 3) -> (B, H*W) int32 labels.
+    """points: (B, H*W, 3) -> (B, H*W) int32 labels."""
+    return extract_planes_batch(points, image_height=image_height,
+                                image_width=image_width, config=config)
 
-    Stages 3-5 run on the fully-batched kernel path (_labels_from_stats_batch)
-    rather than vmapping the single-frame pipeline, so the stacked-batch
-    growing and merge kernels amortize across the batch.
-    """
+
+def extract_planes_batch(points, *, image_height: int, image_width: int,
+                         config: Config):
+    """Unjitted body of extract_planes_batch_jit."""
     from deplex_tpu.ops.cellstats import compute_cell_stats
 
     H, W = image_height, image_width
@@ -109,34 +76,16 @@ def extract_planes_batch_jit(points, *, image_height: int, image_width: int, con
 def extract_depth_batch(depth_batch, intrinsics, config: Config):
     """(B, H, W) uint16 depth + (3,3) K -> (B, H*W) int32 labels.
 
-    The serving fast path: 6x smaller upload than point clouds (back-
-    projection fused on device, pipeline.backproject_device) and the growing
-    stage in the STACKED-BATCH Pallas kernel when it fits VMEM — all
-    frames' rounds advance together so every vector op amortizes across
-    the batch (ops/pallas_growing.py:_kernel_batched).
+    The serving path: the 6x smaller depth maps are uploaded and
+    back-projected on the device (pipeline.backproject_device), where XLA
+    fuses the expansion into the stage-1 block reductions.
     """
-    from deplex_tpu.ops.cellstats import compute_cell_stats
-    from deplex_tpu.ops.pallas_cellstats import (cell_stats_from_depth_pallas,
-                                                 pallas_cellstats_auto)
     from deplex_tpu.pipeline import backproject_device
 
     B, H, W = depth_batch.shape
-    if pallas_cellstats_auto(H, W, config):
-        # Fused depth->moments kernel: the point cloud never exists in HBM.
-        stats = cell_stats_from_depth_pallas(depth_batch, intrinsics, config)
-        pts = None
-    else:
-        pts = jax.vmap(lambda d: backproject_device(d, intrinsics))(depth_batch)
-        stats = jax.vmap(
-            lambda p: compute_cell_stats(p, H, W, config))(pts)
-
-    labels, cell_lab = _labels_from_stats_batch(stats, H, W, config)
-    if config.ransac_refinement:
-        if pts is None:
-            pts = jax.vmap(
-                lambda d: backproject_device(d, intrinsics))(depth_batch)
-        labels = _refine_batch(pts, labels, cell_lab, H, W, config)
-    return labels
+    pts = jax.vmap(lambda d: backproject_device(d, intrinsics))(depth_batch)
+    return extract_planes_batch(pts, image_height=H, image_width=W,
+                                config=config)
 
 
 @functools.partial(jax.jit, static_argnames=("config",))
@@ -206,7 +155,8 @@ class ShardedPlaneExtractor:
     """Multi-device extractor: batch axis sharded over a 1-D device mesh.
 
     mesh: a jax.sharding.Mesh with a 'data' axis (defaults to all local
-    devices). The batch size must be divisible by the mesh size.
+    devices). The batch size must be divisible by the mesh size. The batched
+    program runs under shard_map, once per device on its own frames.
     """
 
     def __init__(self, image_height: int, image_width: int,
@@ -219,6 +169,11 @@ class ShardedPlaneExtractor:
             mesh = Mesh(devices, axis_names=("data",))
         self._mesh = mesh
         self._sharding = NamedSharding(mesh, P("data", None, None))
+        self._run = jax.jit(jax.shard_map(
+            functools.partial(extract_planes_batch, image_height=self._height,
+                              image_width=self._width, config=self._config),
+            mesh=mesh, in_specs=P("data", None, None), out_specs=P("data", None),
+            check_vma=False))
 
     @property
     def mesh(self) -> Mesh:
@@ -230,6 +185,4 @@ class ShardedPlaneExtractor:
         if pts.shape[0] % ndev != 0:
             raise ValueError(f"Batch {pts.shape[0]} not divisible by mesh size {ndev}")
         pts = jax.device_put(pts, self._sharding)
-        labels = extract_planes_batch_jit(pts, image_height=self._height,
-                                          image_width=self._width, config=self._config)
-        return np.asarray(labels)
+        return np.asarray(self._run(pts))

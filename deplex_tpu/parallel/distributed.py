@@ -1,15 +1,15 @@
 """Multi-host initialization and mesh construction.
 
 The reference is strictly single-process (SURVEY.md §2.4); this module is
-the multi-host entry point for the TPU framework: `initialize()` wires
-jax.distributed (DCN control plane), `make_mesh()` builds the device mesh
+the multi-process entry point of the framework: `initialize()` wires
+jax.distributed, `make_mesh()` builds the device mesh
 whose axes the rest of the framework shards over:
 
   * 'data'  — frame batch axis (extraction is embarrassingly parallel;
     inputs stream host-local, no collectives on the extraction path)
   * 'kf'    — keyframe axis for the SLAM backend (ba.ba_step /
     pose_graph_step reduce Schur blocks with psum/all_gather, which XLA
-    lowers onto ICI within a slice and DCN across slices)
+    hands to NCCL on GPUs)
 
 Single-host multi-chip works with the same code (initialize() is then a
 no-op); tests simulate hosts with xla_force_host_platform_device_count.
@@ -32,8 +32,8 @@ def initialize(coordinator_address: str | None = None,
     No-ops when single-process and no coordinator is configured (so the
     same launcher script works from 1 host to N hosts). Arguments default
     to the env contract exported by parallel.launcher
-    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID); on a
-    real TPU pod all three come from the TPU metadata and none is needed.
+    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID); nothing
+    else tells JAX of a cluster.
     """
     env = os.environ
     if coordinator_address is None:
@@ -45,9 +45,9 @@ def initialize(coordinator_address: str | None = None,
     if num_processes is None and coordinator_address is None:
         return
     # The CPU backend ships no cross-process collectives by default; gloo
-    # backs the DCN path when simulating hosts with CPU devices. Harmless
-    # on TPU (the knob only affects the CPU client) and must be set before
-    # the backend initializes.
+    # backs them when simulating hosts with CPU devices. Harmless on GPUs
+    # (the knob only affects the CPU client) and must be set before the
+    # backend initializes.
     try:
         jax.config.update("jax_cpu_collectives_implementation", "gloo")
     except Exception:  # pragma: no cover - knob renamed/absent

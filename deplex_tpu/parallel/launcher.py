@@ -1,15 +1,17 @@
 """Local multi-process launcher for jax.distributed (torchrun-style).
 
 The reference is strictly single-process (SURVEY.md §2.4; no MPI/NCCL/Gloo
-anywhere in /root/reference); multi-host execution is a new TPU-native
-capability. On a real TPU pod every host's runtime reads its coordinates
-from the TPU metadata and `parallel.distributed.initialize()` needs no
-arguments. This launcher covers the remaining deployments:
+anywhere in the reference); multi-process execution is a new capability.
+Nothing tells JAX of a cluster, so `parallel.distributed.initialize()` reads
+the coordinator, the group size and the rank from the env contract below.
+This launcher covers:
 
-  * N-process CPU simulation of a multi-host slice (tests / CI): each
+  * one process per GPU of a host (`--platform gpu`): process i sees only
+    card i (CUDA_VISIBLE_DEVICES=i), since a JAX process reserves most of a
+    card's memory and a second process on the same card would fail;
+  * N-process CPU simulation of a multi-host group (tests / CI): each
     process gets `--local-devices` fake CPU devices and the group's
-    collectives ride gloo — the same program code that runs over ICI/DCN
-    on hardware executes end-to-end without a cluster;
+    collectives ride gloo;
   * generic multi-node bring-up where an external scheduler starts one
     process per node and only needs the env contract below.
 
@@ -50,6 +52,31 @@ class ProcessResult:
     stderr: str
 
 
+def process_env(pid: int, num_processes: int, port: int, *,
+                platform: str | None = None, local_devices: int | None = None,
+                extra_env: dict[str, str] | None = None,
+                base_env: dict[str, str] | None = None) -> dict[str, str]:
+    """The environment of process `pid` of the group."""
+    env = dict(os.environ if base_env is None else base_env)
+    env["JAX_COORDINATOR_ADDRESS"] = f"127.0.0.1:{port}"
+    env["JAX_NUM_PROCESSES"] = str(num_processes)
+    env["JAX_PROCESS_ID"] = str(pid)
+    if platform:
+        env["JAX_PLATFORMS"] = "cuda" if platform == "gpu" else platform
+    if platform in ("gpu", "cuda"):
+        env["CUDA_VISIBLE_DEVICES"] = str(pid)     # one card per process
+    if local_devices:
+        flags = env.get("XLA_FLAGS", "")
+        flags = " ".join(f for f in flags.split()
+                         if "xla_force_host_platform_device_count" not in f)
+        env["XLA_FLAGS"] = (
+            f"{flags} --xla_force_host_platform_device_count={local_devices}"
+        ).strip()
+    if extra_env:
+        env.update(extra_env)
+    return env
+
+
 def launch(cmd: list[str], num_processes: int, *,
            local_devices: int | None = None,
            platform: str | None = None,
@@ -61,7 +88,8 @@ def launch(cmd: list[str], num_processes: int, *,
 
     cmd: argv of the worker (a `python script.py ...` prefix is added when
     cmd[0] ends in .py). Each process receives the env contract above, plus
-    JAX_PLATFORMS=<platform> and, when local_devices is set,
+    JAX_PLATFORMS=<platform>; on a GPU platform, one card each
+    (CUDA_VISIBLE_DEVICES=<pid>); and, when local_devices is set,
     --xla_force_host_platform_device_count=<n> appended to XLA_FLAGS.
     """
     if num_processes < 1:
@@ -73,21 +101,8 @@ def launch(cmd: list[str], num_processes: int, *,
 
     procs = []
     for pid in range(num_processes):
-        env = dict(os.environ)
-        env["JAX_COORDINATOR_ADDRESS"] = f"127.0.0.1:{port}"
-        env["JAX_NUM_PROCESSES"] = str(num_processes)
-        env["JAX_PROCESS_ID"] = str(pid)
-        if platform:
-            env["JAX_PLATFORMS"] = platform
-        if local_devices:
-            flags = env.get("XLA_FLAGS", "")
-            flags = " ".join(f for f in flags.split()
-                             if "xla_force_host_platform_device_count" not in f)
-            env["XLA_FLAGS"] = (
-                f"{flags} --xla_force_host_platform_device_count={local_devices}"
-            ).strip()
-        if extra_env:
-            env.update(extra_env)
+        env = process_env(pid, num_processes, port, platform=platform,
+                          local_devices=local_devices, extra_env=extra_env)
         procs.append(subprocess.Popen(
             cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
             text=True))
@@ -124,7 +139,7 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--local-devices", type=int, default=None,
                     help="fake CPU devices per process (simulation mode)")
     ap.add_argument("--platform", default=None,
-                    help="JAX_PLATFORMS value for workers (e.g. cpu)")
+                    help="workers' platform: cpu, or gpu for one card each")
     ap.add_argument("--timeout", type=float, default=600.0)
     ap.add_argument("cmd", nargs=argparse.REMAINDER,
                     help="worker command (prefix with -- )")

@@ -4,7 +4,7 @@ The reference loads and back-projects each PNG synchronously before every
 process() call (examples/process_sequence.cpp:31-43). Here a small thread
 pool decodes frames ahead (native C++ PNG path) and uploads them while the
 device is busy with earlier frames — the pipeline-parallel overlap listed in
-SURVEY.md §2.4 as the TPU build's PP analog.
+SURVEY.md §2.4 as this build's PP analog.
 """
 
 from __future__ import annotations

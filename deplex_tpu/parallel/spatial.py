@@ -1,7 +1,7 @@
 """TP-analog spatial sharding: ONE frame's cell grid split across a mesh axis.
 
 SURVEY.md §2.4 row 3: the reference has no tensor-parallel analog (it is a
-serial single-frame C++ library); the TPU-native analog is sharding a single
+serial single-frame C++ library); the analog here is sharding a single
 frame's cell grid across devices — useful when one frame is large (the
 1280x720 stress config) and latency of that single frame matters more than
 batch throughput.
@@ -31,7 +31,7 @@ Design (all inside one `jax.shard_map` over a 1-D mesh axis, default
   stage 5  rasterize       — local.
 
 Collectives are O(rounds) small psums/ppermutes (a few KB each) — they ride
-ICI on a real slice. Region sufficient statistics cross the shard boundary
+NVLink between GPUs of a host. Region sufficient statistics cross the shard boundary
 as float psums, so labels can differ from the single-device pipeline by
 reduction-order ulps when a gate sits exactly on a threshold; tests assert
 label agreement, not bit equality (tests/test_spatial.py).
@@ -56,6 +56,7 @@ from deplex_tpu.ops.cellstats import CellStats, compute_cell_stats
 from deplex_tpu.ops.growing import (_N, _SIZE, _SX, _XX, RoundData,
                                     admissibility_edges, finalize_rounds)
 from deplex_tpu.ops.histogram import histogram_counts, normal_bins
+from deplex_tpu.precision import HIGHEST
 from deplex_tpu.ops.merge import (merge_planes_from_adjacency, pair_adjacency,
                                   rasterize_labels)
 
@@ -150,6 +151,7 @@ def grow_rounds_spatial(stats: CellStats, config: Config, axis: str,
         unassigned: jax.Array
         round_map: jax.Array
         sums: jax.Array
+        seeds: jax.Array
         remaining: jax.Array
         stop: jax.Array
         rounds: jax.Array
@@ -159,6 +161,7 @@ def grow_rounds_spatial(stats: CellStats, config: Config, axis: str,
         unassigned=stats.planar,
         round_map=jnp.full((gh_l, gw), -1, jnp.int32),
         sums=jnp.zeros((R_MAX, 16), jnp.float32),
+        seeds=jnp.full((R_MAX,), ntp * gh_l * gw, jnp.int32),
         remaining=jax.lax.psum(jnp.sum(stats.planar).astype(jnp.int32), axis),
         stop=jnp.bool_(False),
         rounds=jnp.int32(0),
@@ -203,12 +206,13 @@ def grow_rounds_spatial(stats: CellStats, config: Config, axis: str,
                + (seed_mask & region).astype(jnp.float32))
         n_tot = jax.lax.psum(jnp.sum(wgt) * stats.nr_pts, axis)
         sum_tot = jax.lax.psum(
-            jnp.einsum("gh,ghi->i", wgt, stats.coord_sum), axis)
+            jnp.einsum("gh,ghi->i", wgt, stats.coord_sum, precision=HIGHEST), axis)
         mu = sum_tot / jnp.maximum(n_tot, 1.0)
         dmu = stats.mean - mu
         sc_tot = jax.lax.psum(
-            jnp.einsum("gh,ghij->ij", wgt, stats.scatter)
-            + stats.nr_pts * jnp.einsum("gh,ghi,ghj->ij", wgt, dmu, dmu), axis)
+            jnp.einsum("gh,ghij->ij", wgt, stats.scatter, precision=HIGHEST)
+            + stats.nr_pts * jnp.einsum("gh,ghi,ghj->ij", wgt, dmu, dmu,
+                                        precision=HIGHEST), axis)
 
         row = jnp.zeros(16, jnp.float32)
         row = row.at[_N].set(n_tot)
@@ -218,14 +222,15 @@ def grow_rounds_spatial(stats: CellStats, config: Config, axis: str,
         row = jax.lax.dynamic_update_slice(row, packed, (_XX,))
         row = row.at[_SIZE].set(size.astype(jnp.float32))
         sums = jax.lax.dynamic_update_slice(s.sums, row[None], (s.rounds, 0))
+        seeds = s.seeds.at[s.rounds].set(seed_id)
 
         return LoopState(bins=bins, unassigned=unassigned, round_map=round_map,
-                         sums=sums, remaining=remaining, stop=stop,
+                         sums=sums, seeds=seeds, remaining=remaining, stop=stop,
                          rounds=s.rounds + 1)
 
     final = jax.lax.while_loop(cond, body, state0)
     return RoundData(round_map=final.round_map, sums=final.sums,
-                     nr_rounds=final.rounds)
+                     nr_rounds=final.rounds, seeds=final.seeds)
 
 
 def plane_adjacency_spatial(labels_map: jax.Array, max_planes: int, axis: str,

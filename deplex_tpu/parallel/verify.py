@@ -7,7 +7,7 @@ the framework's two distributed paths end-to-end —
   1. frame extraction sharded over the global 'data' mesh (the
      embarrassingly-parallel path: no collectives, data placement only), and
   2. one keyframe-sharded BA step (`slam.ba.ba_step(axis_name=...)`) whose
-     Schur reduction rides psum/all_gather across processes (ICI/DCN on
+     Schur reduction rides psum/all_gather across processes (NCCL on
      hardware, gloo in CPU simulation)
 
 — and writes this process's results to `--out/proc<id>.npz` so a supervisor
@@ -155,7 +155,12 @@ def main(argv=None) -> int:
     depth = jax.make_array_from_process_local_data(sharding, local, (B, VERIFY_H, VERIFY_W))
     K = jnp.asarray(synth_intrinsics())
 
-    labels = jax.jit(lambda d, k: extract_depth_batch(d, k, cfg))(depth, K)
+    # Under shard_map each device extracts its own frames (XLA cannot
+    # partition the GPU growing kernel's custom call).
+    labels = jax.jit(jax.shard_map(
+        lambda d, k: extract_depth_batch(d, k, cfg), mesh=mesh,
+        in_specs=(P("data", None, None), P()), out_specs=P("data", None),
+        check_vma=False))(depth, K)
     jax.block_until_ready(labels)
     frame_idx, labels_local = _gather_local(labels)
 

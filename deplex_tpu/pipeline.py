@@ -15,32 +15,8 @@ import jax.numpy as jnp
 
 from deplex_tpu.config import Config
 from deplex_tpu.ops.cellstats import compute_cell_stats
-from deplex_tpu.ops.growing import grow_planes
-from deplex_tpu.ops.merge import merge_planes, rasterize_labels
-
-
-def merge_stage(labels_map: jax.Array, segments, config: Config) -> jax.Array:
-    """Stage-4 dispatch: (gh, gw) labels + PlaneSegments -> merge_labels.
-
-    Routes to the on-core Pallas merge kernel (B=1 wrap of the batched
-    kernel, ~4us/frame) when supported, else the exact XLA row loop
-    (~118us/frame) — the same auto gates as the batched depth path, so the
-    reference-shaped points API (PlaneExtractor.process) gets identical
-    stage timings to process_depth.
-    """
-    from deplex_tpu.ops.pallas_merge import (merge_planes_pallas_batched,
-                                             pallas_merge_supported)
-
-    if (config.use_pallas_growing is not False
-            and pallas_merge_supported(config)):
-        merge_labels, _ = jax.tree.map(
-            lambda a: a[0],
-            merge_planes_pallas_batched(
-                labels_map[None], jax.tree.map(lambda a: a[None], segments),
-                config))
-        return merge_labels
-    merge_labels, _ = merge_planes(labels_map, segments, config)
-    return merge_labels
+from deplex_tpu.ops.growing import finalize_rounds, grow_planes, grow_rounds_device
+from deplex_tpu.ops.merge import merge_planes_device, rasterize_labels
 
 
 def extract_planes(points: jax.Array, *, image_height: int, image_width: int,
@@ -58,7 +34,7 @@ def extract_planes(points: jax.Array, *, image_height: int, image_width: int,
 
     stats = compute_cell_stats(points, image_height, image_width, config)
     labels_map, segments = grow_planes(stats, config)
-    merge_labels = merge_stage(labels_map, segments, config)
+    merge_labels, _ = merge_planes_device(labels_map, segments, config)
     labels = rasterize_labels(labels_map, merge_labels, image_height, image_width, P)
 
     if config.ransac_refinement:
@@ -81,11 +57,11 @@ def backproject_device(depth: jax.Array, intrinsics: jax.Array) -> jax.Array:
     """On-device pinhole back-projection: (H, W) uint16/float depth ->
     (H*W, 3) float32 organized cloud.
 
-    TPU-native fusion of the reference's host-side DepthImage::toPointCloud
+    On-device form of the reference's host-side DepthImage::toPointCloud
     (depth_image.cpp:55-78): the depth map is 6x smaller than the cloud, so
     shipping raw uint16 to the device and expanding there cuts host->device
-    traffic by 6x and lets XLA fuse the expansion into stage 1's cell
-    gather.
+    traffic by 6x and lets XLA fuse the expansion into stage 1's block
+    reductions.
     """
     H, W = depth.shape
     K = intrinsics.astype(jnp.float32)
@@ -102,25 +78,9 @@ def extract_planes_from_depth(depth: jax.Array, intrinsics: jax.Array, *,
                               config: Config) -> jax.Array:
     """uint16 depth (H, W) + 3x3 intrinsics -> (H*W,) int32 labels.
 
-    Single fused XLA program: back-projection + all pipeline stages. When
-    the fused Pallas depth->moments kernel applies (and RANSAC is off so
-    the point cloud is never needed), stage 1 reads only the depth map.
+    Single jitted program: back-projection + all pipeline stages.
     """
-    from deplex_tpu.ops.pallas_cellstats import (cell_stats_from_depth_pallas,
-                                                 pallas_cellstats_auto)
-
     H, W = depth.shape
-    if not config.ransac_refinement and pallas_cellstats_auto(H, W, config):
-        from deplex_tpu.ops.growing import grow_planes
-        from deplex_tpu.ops.merge import merge_planes, rasterize_labels
-
-        P = min(config.patch_size, min(H, W))
-        stats = jax.tree.map(
-            lambda a: a[0],
-            cell_stats_from_depth_pallas(depth[None], intrinsics, config))
-        labels_map, segments = grow_planes(stats, config)
-        merge_labels = merge_stage(labels_map, segments, config)
-        return rasterize_labels(labels_map, merge_labels, H, W, P)
     points = backproject_device(depth, intrinsics)
     return extract_planes(points, image_height=H, image_width=W, config=config)
 
@@ -134,7 +94,7 @@ def extract_planes_debug(points, *, image_height: int, image_width: int, config:
     """Un-jitted variant returning intermediates for tests/debugging."""
     stats = compute_cell_stats(points, image_height, image_width, config)
     labels_map, segments = grow_planes(stats, config)
-    merge_labels, merged = merge_planes(labels_map, segments, config)
+    merge_labels, merged = merge_planes_device(labels_map, segments, config)
     P = min(config.patch_size, min(image_height, image_width))
     labels = rasterize_labels(labels_map, merge_labels, image_height, image_width, P)
     return {"stats": stats, "labels_map": labels_map, "segments": segments,
@@ -152,19 +112,13 @@ def extract_primitives(points: jax.Array, *, image_height: int,
     gate (ops/cylinder.py), so the expensive stages run once for both.
     """
     from deplex_tpu.ops.cylinder import extract_cylinders
-    from deplex_tpu.ops.growing import finalize_rounds, grow_rounds
-    from deplex_tpu.ops.pallas_growing import grow_rounds_pallas, pallas_supported
 
     H, W = image_height, image_width
     P = min(config.patch_size, min(H, W))
     stats = compute_cell_stats(points, H, W, config)
-    use_pallas = config.use_pallas_growing
-    if (use_pallas or use_pallas is None) and pallas_supported(stats.planar.shape, config):
-        rounds = grow_rounds_pallas(stats, config)
-    else:
-        rounds = grow_rounds(stats, config)
+    rounds = grow_rounds_device(stats, config)
     labels_map, segments = finalize_rounds(rounds, config)
-    merge_labels, merged = merge_planes(labels_map, segments, config)
+    merge_labels, _ = merge_planes_device(labels_map, segments, config)
     plane_labels = rasterize_labels(labels_map, merge_labels, H, W, P)
 
     cyl_map, cylinders = extract_cylinders(stats, rounds, config)

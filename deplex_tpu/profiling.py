@@ -1,6 +1,6 @@
 """Stage-level tracing / profiling.
 
-TPU-native equivalent of the reference's BENCHMARK_LOGGING build flavor
+Equivalent of the reference's BENCHMARK_LOGGING build flavor
 (plane_extractor.cpp:36-43,196-257: chrono stamps around each pipeline stage
 logged in microseconds) and DEBUG_BENCHMARK gprof mode: here the same stage
 taxonomy (cell-grid / histogram+growing / merge / labels / refinement) is
@@ -56,7 +56,7 @@ def stage_timings(points, image_height: int, image_width: int,
 
     from deplex_tpu.ops.cellstats import compute_cell_stats
     from deplex_tpu.ops.growing import grow_planes
-    from deplex_tpu.ops.merge import merge_planes, rasterize_labels
+    from deplex_tpu.ops.merge import merge_planes_device, rasterize_labels
 
     cfg = config or Config()
     H, W = image_height, image_width
@@ -65,7 +65,7 @@ def stage_timings(points, image_height: int, image_width: int,
     s1 = jax.jit(functools.partial(compute_cell_stats, image_height=H,
                                    image_width=W, config=cfg))
     s2 = jax.jit(functools.partial(grow_planes, config=cfg))
-    s3 = jax.jit(functools.partial(merge_planes, config=cfg))
+    s3 = jax.jit(functools.partial(merge_planes_device, config=cfg))
     s4 = jax.jit(functools.partial(rasterize_labels, image_height=H,
                                    image_width=W, patch_size=P))
 

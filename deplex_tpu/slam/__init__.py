@@ -1,4 +1,4 @@
-"""Plane-landmark SLAM stack (new TPU-native capability).
+"""Plane-landmark SLAM stack (new capability).
 
 The reference library stops at per-frame plane labels; this subpackage adds
 the downstream pipeline from BASELINE.json's north star: plane association

@@ -8,7 +8,7 @@ resolution is done with a fixed MAXP-round fori_loop (MAXP is small), all
 dense — no data-dependent shapes.
 
 This implements the capability the reference only stubs out
-(/root/reference/python/deplex/association/foo.py) as a real TPU-native
+(/root/reference/python/deplex/association/foo.py) as a real batched
 module.
 """
 
@@ -20,6 +20,7 @@ import jax
 import jax.numpy as jnp
 
 from deplex_tpu.slam.planes import PlaneObs, transform_plane
+from deplex_tpu.precision import HIGHEST
 
 
 class AssociationParams(NamedTuple):
@@ -58,9 +59,10 @@ def associate(obs: PlaneObs, lm_normal: jax.Array, lm_d: jax.Array,
     MAXP = obs.d.shape[0]
     n_pred, d_pred = transform_plane(R, t, lm_normal, lm_d)       # (M, 3), (M,)
 
-    cos = jnp.einsum("pi,mi->pm", obs.normal, n_pred)
+    cos = jnp.einsum("pi,mi->pm", obs.normal, n_pred, precision=HIGHEST)
     d_diff = jnp.abs(obs.d[:, None] - d_pred[None, :])
-    pt_dist = jnp.abs(jnp.einsum("pi,mi->pm", obs.mean, n_pred) + d_pred[None, :])
+    pt_dist = jnp.abs(jnp.einsum("pi,mi->pm", obs.mean, n_pred, precision=HIGHEST)
+                      + d_pred[None, :])
 
     ok = ((cos >= params.min_cos_angle)
           & (d_diff <= params.max_offset_dist)

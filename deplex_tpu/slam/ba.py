@@ -23,7 +23,7 @@ landmark block is eliminated in closed form (Schur complement):
 Distribution. Observations are stored per keyframe ((K, P) slots), so
 sharding the KEYFRAME axis over the device mesh shards the expensive
 per-observation Jacobian/outer-product work; the small S, g, and the
-landmark-block accumulators are combined with psum over the mesh (ICI) —
+landmark-block accumulators are combined with psum over the mesh (NCCL on GPUs) —
 see ba_step_sharded. The dense math is identical on 1 device.
 
 All shapes static: K keyframes, P observation slots per frame, M landmarks;
@@ -39,6 +39,7 @@ import jax.numpy as jnp
 
 from deplex_tpu.slam.lie import se3_exp, so3_log
 from deplex_tpu.slam.planes import from_cp
+from deplex_tpu.precision import HIGHEST
 
 
 class BAProblem(NamedTuple):
@@ -96,11 +97,11 @@ def _residual_and_jac(Ri, ti, eta_j, n_obs, d_obs):
 
     def res(xi, eta):
         dR, dt = se3_exp(xi)
-        R = dR @ Ri
-        t = jnp.einsum("ij,j->i", dR, ti) + dt
+        R = jnp.matmul(dR, Ri, precision=HIGHEST)
+        t = jnp.einsum("ij,j->i", dR, ti, precision=HIGHEST) + dt
         n_w, d_w = from_cp(eta)
-        n_c = R @ n_w
-        d_c = d_w - jnp.dot(n_c, t)
+        n_c = jnp.matmul(R, n_w, precision=HIGHEST)
+        d_c = d_w - jnp.dot(n_c, t, precision=HIGHEST)
         return jnp.concatenate([
             NORMAL_WEIGHT * (n_c - n_obs),
             (OFFSET_WEIGHT * (d_c - d_obs))[None],
@@ -132,14 +133,14 @@ def _accumulate(problem: BAProblem, M: int):
         # instead of dragging poses (same robustification as odometry).
         r_norm = jnp.sqrt(jnp.sum(r * r, -1) + 1e-12)
         w = w * jnp.minimum(1.0, HUBER_DELTA / r_norm)
-        Hpp_i = jnp.einsum("p,pik,pil->kl", w, Jp, Jp)      # (6, 6)
-        bp_i = jnp.einsum("p,pik,pi->k", w, Jp, r)          # (6,)
-        # Landmark-indexed accumulations via one-hot (dup-index scatters
-        # serialize on TPU; M is small).
+        Hpp_i = jnp.einsum("p,pik,pil->kl", w, Jp, Jp, precision=HIGHEST)      # (6, 6)
+        bp_i = jnp.einsum("p,pik,pi->k", w, Jp, r, precision=HIGHEST)          # (6,)
+        # Landmark-indexed accumulations via one-hot contractions (exact
+        # sums, no scatter with duplicate indices; M is small).
         onehot = (lm[:, None] == jnp.arange(M)[None, :]).astype(r.dtype) * w[:, None]
-        Hll_i = jnp.einsum("pm,pik,pil->mkl", onehot, Jl, Jl)   # (M, 3, 3)
-        bl_i = jnp.einsum("pm,pik,pi->mk", onehot, Jl, r)       # (M, 3)
-        Hpl_i = jnp.einsum("pm,pik,pil->mkl", onehot, Jp, Jl)   # (M, 6, 3)
+        Hll_i = jnp.einsum("pm,pik,pil->mkl", onehot, Jl, Jl, precision=HIGHEST)   # (M, 3, 3)
+        bl_i = jnp.einsum("pm,pik,pi->mk", onehot, Jl, r, precision=HIGHEST)       # (M, 3)
+        Hpl_i = jnp.einsum("pm,pik,pil->mkl", onehot, Jp, Jl, precision=HIGHEST)   # (M, 6, 3)
         cost_i = jnp.sum(w * jnp.sum(r * r, -1))
         return Hpp_i, bp_i, Hll_i, bl_i, Hpl_i, cost_i
 
@@ -153,13 +154,13 @@ def _odo_residual(xi_a, xi_b, Ra, ta, Rb, tb, mR, mt):
     """Weighted 6-residual of one consecutive-pose motion prior."""
     dRa, dta = se3_exp(xi_a)
     dRb, dtb = se3_exp(xi_b)
-    Ra2 = dRa @ Ra
-    ta2 = jnp.einsum("ij,j->i", dRa, ta) + dta
-    Rb2 = dRb @ Rb
-    tb2 = jnp.einsum("ij,j->i", dRb, tb) + dtb
-    R_rel = Ra2 @ Rb2.T
-    t_rel = ta2 - jnp.einsum("ij,j->i", R_rel, tb2)
-    r_rot = so3_log(mR.T @ R_rel) * ODO_ROT_SCALE
+    Ra2 = jnp.matmul(dRa, Ra, precision=HIGHEST)
+    ta2 = jnp.einsum("ij,j->i", dRa, ta, precision=HIGHEST) + dta
+    Rb2 = jnp.matmul(dRb, Rb, precision=HIGHEST)
+    tb2 = jnp.einsum("ij,j->i", dRb, tb, precision=HIGHEST) + dtb
+    R_rel = jnp.matmul(Ra2, Rb2.T, precision=HIGHEST)
+    t_rel = ta2 - jnp.einsum("ij,j->i", R_rel, tb2, precision=HIGHEST)
+    r_rot = so3_log(jnp.matmul(mR.T, R_rel, precision=HIGHEST)) * ODO_ROT_SCALE
     r_tr = (t_rel - mt) * ODO_TR_SCALE
     return jnp.concatenate([r_rot, r_tr])
 
@@ -178,18 +179,18 @@ def _cv_residual(xi_a, xi_b, xi_c, Ra, ta, Rb, tb, Rc, tc):
     dRa, dta = se3_exp(xi_a)
     dRb, dtb = se3_exp(xi_b)
     dRc, dtc = se3_exp(xi_c)
-    R_a = dRa @ Ra
-    t_a = jnp.einsum("ij,j->i", dRa, ta) + dta
-    R_b = dRb @ Rb
-    t_b = jnp.einsum("ij,j->i", dRb, tb) + dtb
-    R_c = dRc @ Rc
-    t_c = jnp.einsum("ij,j->i", dRc, tc) + dtc
-    ca = -R_a.T @ t_a
-    cb = -R_b.T @ t_b
-    cc = -R_c.T @ t_c
-    A = R_c @ R_b.T
-    B = R_b @ R_a.T
-    r_rot = so3_log(A @ B.T) * ODO_ROT_SCALE
+    R_a = jnp.matmul(dRa, Ra, precision=HIGHEST)
+    t_a = jnp.einsum("ij,j->i", dRa, ta, precision=HIGHEST) + dta
+    R_b = jnp.matmul(dRb, Rb, precision=HIGHEST)
+    t_b = jnp.einsum("ij,j->i", dRb, tb, precision=HIGHEST) + dtb
+    R_c = jnp.matmul(dRc, Rc, precision=HIGHEST)
+    t_c = jnp.einsum("ij,j->i", dRc, tc, precision=HIGHEST) + dtc
+    ca = jnp.matmul(-R_a.T, t_a, precision=HIGHEST)
+    cb = jnp.matmul(-R_b.T, t_b, precision=HIGHEST)
+    cc = jnp.matmul(-R_c.T, t_c, precision=HIGHEST)
+    A = jnp.matmul(R_c, R_b.T, precision=HIGHEST)
+    B = jnp.matmul(R_b, R_a.T, precision=HIGHEST)
+    r_rot = so3_log(jnp.matmul(A, B.T, precision=HIGHEST)) * ODO_ROT_SCALE
     r_tr = (cc - cb) - (cb - ca)
     return jnp.concatenate([r_rot, r_tr])
 
@@ -204,7 +205,7 @@ def _cv_blocks(R_all, t_all, cv_w):
         args = (zeros6, zeros6, zeros6, Ra, ta, Rb, tb, Rc, tc)
         r = _cv_residual(*args)
         Js = [jax.jacfwd(_cv_residual, argnums=i)(*args) for i in range(3)]
-        return jnp.stack(Js), r, w * jnp.dot(r, r)
+        return jnp.stack(Js), r, w * jnp.dot(r, r, precision=HIGHEST)
 
     J, r, cost = jax.vmap(per_triple)(
         R_all[:-2], t_all[:-2], R_all[1:-1], t_all[1:-1], R_all[2:],
@@ -224,10 +225,12 @@ def _odo_blocks(R_all, t_all, odo_R, odo_t, odo_w):
             zeros6, zeros6, Ra, ta, Rb, tb, mR, mt)
         Jb = jax.jacfwd(_odo_residual, argnums=1)(
             zeros6, zeros6, Ra, ta, Rb, tb, mR, mt)
-        Haa = w * Ja.T @ Ja
-        Hab = w * Ja.T @ Jb
-        Hbb = w * Jb.T @ Jb
-        return Haa, Hab, Hbb, w * Ja.T @ r, w * Jb.T @ r, w * jnp.dot(r, r)
+        Haa = jnp.matmul(w * Ja.T, Ja, precision=HIGHEST)
+        Hab = jnp.matmul(w * Ja.T, Jb, precision=HIGHEST)
+        Hbb = jnp.matmul(w * Jb.T, Jb, precision=HIGHEST)
+        ga = jnp.matmul(w * Ja.T, r, precision=HIGHEST)
+        gb = jnp.matmul(w * Jb.T, r, precision=HIGHEST)
+        return Haa, Hab, Hbb, ga, gb, w * jnp.dot(r, r, precision=HIGHEST)
 
     Haa, Hab, Hbb, ga, gb, cost = jax.vmap(per_edge)(
         R_all[:-1], t_all[:-1], R_all[1:], t_all[1:], odo_R, odo_t, odo_w)
@@ -249,7 +252,7 @@ def ba_step(problem: BAProblem, *, damping: float = 1e-4,
     # The per-observation Jacobian work above is the expensive part and stays
     # sharded; the Schur assembly below is tiny (K <= ~64 poses), so in the
     # sharded case the per-frame blocks are gathered and assembled replicated
-    # on every device — landmark blocks reduce with psum over ICI.
+    # on every device — landmark blocks reduce with psum over the mesh.
     if axis_name is not None:
         Hll = jax.lax.psum(Hll, axis_name)
         bl = jax.lax.psum(bl, axis_name)
@@ -267,9 +270,9 @@ def ba_step(problem: BAProblem, *, damping: float = 1e-4,
 
     # Schur complement:
     # S[a, b] = delta_ab Hpp[a] - sum_j Hpl[a, j] Hll_inv[j] Hpl[b, j]^T
-    W = jnp.einsum("amkc,mcd->amkd", Hpl_all, Hll_inv)      # (Kg, M, 6, 3)
-    U = jnp.einsum("amkd,bmld->abkl", W, Hpl_all)           # (Kg, Kg, 6, 6)
-    g = bp_all - jnp.einsum("amkd,md->ak", W, bl)           # (Kg, 6)
+    W = jnp.einsum("amkc,mcd->amkd", Hpl_all, Hll_inv, precision=HIGHEST)      # (Kg, M, 6, 3)
+    U = jnp.einsum("amkd,bmld->abkl", W, Hpl_all, precision=HIGHEST)           # (Kg, Kg, 6, 6)
+    g = bp_all - jnp.einsum("amkd,md->ak", W, bl, precision=HIGHEST)           # (Kg, 6)
 
     S = -U
     S = S.at[jnp.arange(Kg), jnp.arange(Kg)].add(Hpp_all)
@@ -300,10 +303,10 @@ def ba_step(problem: BAProblem, *, damping: float = 1e-4,
         w = problem.cv_w
         for a in range(3):
             g = g.at[idx + a].add(
-                jnp.einsum("e,eik,ei->ek", w, J[:, a], r))
+                jnp.einsum("e,eik,ei->ek", w, J[:, a], r, precision=HIGHEST))
             for b in range(3):
                 S = S.at[idx + a, idx + b].add(
-                    jnp.einsum("e,eik,eil->ekl", w, J[:, a], J[:, b]))
+                    jnp.einsum("e,eik,eil->ekl", w, J[:, a], J[:, b], precision=HIGHEST))
 
     S = S + damping * jnp.eye(6, dtype=S.dtype)[None, None] * \
         (jnp.arange(Kg)[:, None, None, None] == jnp.arange(Kg)[None, :, None, None])
@@ -323,14 +326,14 @@ def ba_step(problem: BAProblem, *, damping: float = 1e-4,
         dxp = dxp_all
 
     # Landmark back-substitution: dx_l = -Hll_inv (bl + sum_a Hpl[a]^T dxp_a).
-    rhs_local = jnp.einsum("amkd,ak->md", Hpl, dxp)
+    rhs_local = jnp.einsum("amkd,ak->md", Hpl, dxp, precision=HIGHEST)
     if axis_name is not None:
         rhs_local = jax.lax.psum(rhs_local, axis_name)
-    dxl = -jnp.einsum("mcd,md->mc", Hll_inv, bl + rhs_local)
+    dxl = -jnp.einsum("mcd,md->mc", Hll_inv, bl + rhs_local, precision=HIGHEST)
 
     dR, dt = se3_exp(dxp)
-    R_new = dR @ problem.R
-    t_new = jnp.einsum("kij,kj->ki", dR, problem.t) + dt
+    R_new = jnp.matmul(dR, problem.R, precision=HIGHEST)
+    t_new = jnp.einsum("kij,kj->ki", dR, problem.t, precision=HIGHEST) + dt
     eta_new = problem.eta + dxl
     return BAState(R=R_new, t=t_new, eta=eta_new, cost=cost)
 
@@ -464,7 +467,7 @@ def run_ba_sharded(problem: BAProblem, mesh=None, *, axis: str = "kf",
 
     The full LM accept/reject loop executes under shard_map: each device
     holds K/n keyframes' observations and does that shard's Jacobian /
-    outer-product work; Schur blocks combine with psum/all_gather over ICI
+    outer-product work; Schur blocks combine with psum/all_gather over the mesh
     (ba_step), and the psum'd cost keeps the damping schedule in lockstep
     (_lm_loop). Landmarks (eta) and the motion-prior chains are replicated
     — they are O(M + K) small; the per-observation work is the O(K*P)

@@ -1,6 +1,6 @@
 """SO(3)/SE(3) Lie-group operations, batched and jit-friendly.
 
-The SLAM backend (new TPU-native capability; the reference library is
+The SLAM backend (new capability; the reference library is
 stateless per-frame extraction only — SURVEY.md §5.7) parameterizes pose
 updates in the se(3) tangent space. Everything here is closed-form,
 branch-free (Taylor fallbacks via jnp.where), and batch-broadcastable.
@@ -13,6 +13,7 @@ T' = exp(xi) @ T with exp acting on (R, t) pairs.
 from __future__ import annotations
 
 import jax.numpy as jnp
+from deplex_tpu.precision import HIGHEST
 
 
 def hat(phi: jnp.ndarray) -> jnp.ndarray:
@@ -37,7 +38,7 @@ def so3_exp(phi: jnp.ndarray) -> jnp.ndarray:
                   (1.0 - jnp.cos(theta)) / jnp.where(small, 1.0, theta2))
     K = hat(phi)
     eye = jnp.broadcast_to(jnp.eye(3, dtype=phi.dtype), K.shape)
-    return eye + a * K + b * (K @ K)
+    return eye + a * K + b * (jnp.matmul(K, K, precision=HIGHEST))
 
 
 def so3_log(R: jnp.ndarray) -> jnp.ndarray:
@@ -79,21 +80,22 @@ def se3_exp(xi: jnp.ndarray):
                   (1.0 - jnp.cos(theta)) / jnp.where(small, 1.0, theta2))
     c = jnp.where(small, 1.0 / 6.0 - theta2 / 120.0,
                   (theta - jnp.sin(theta)) / jnp.where(small, 1.0, theta2 * theta))
-    V = eye + b * K + c * (K @ K)
-    t = jnp.einsum("...ij,...j->...i", V, rho)
+    V = eye + b * K + c * (jnp.matmul(K, K, precision=HIGHEST))
+    t = jnp.einsum("...ij,...j->...i", V, rho, precision=HIGHEST)
     return R, t
 
 
 def se3_apply(R: jnp.ndarray, t: jnp.ndarray, p: jnp.ndarray) -> jnp.ndarray:
     """Apply (R, t) to points p (..., 3)."""
-    return jnp.einsum("...ij,...j->...i", R, p) + t
+    return jnp.einsum("...ij,...j->...i", R, p, precision=HIGHEST) + t
 
 
 def se3_compose(Ra, ta, Rb, tb):
     """(Ra, ta) ∘ (Rb, tb): first apply b, then a."""
-    return Ra @ Rb, jnp.einsum("...ij,...j->...i", Ra, tb) + ta
+    return (jnp.matmul(Ra, Rb, precision=HIGHEST),
+            jnp.einsum("...ij,...j->...i", Ra, tb, precision=HIGHEST) + ta)
 
 
 def se3_inverse(R, t):
     Rt = jnp.swapaxes(R, -1, -2)
-    return Rt, -jnp.einsum("...ij,...j->...i", Rt, t)
+    return Rt, -jnp.einsum("...ij,...j->...i", Rt, t, precision=HIGHEST)

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 
 from deplex_tpu.slam.lie import se3_exp, so3_exp
 from deplex_tpu.slam.planes import PlaneObs
+from deplex_tpu.precision import HIGHEST
 
 
 class OdometryResult(NamedTuple):
@@ -56,8 +57,8 @@ def estimate_pose(obs: PlaneObs, lm_normal: jax.Array, lm_d: jax.Array,
     wd = jnp.float32(offset_weight)
 
     def residuals(R, t):
-        n_pred = n_w @ R.T                                 # (P, 3)
-        d_pred = d_w - n_pred @ t                          # (P,)
+        n_pred = jnp.matmul(n_w, R.T, precision=HIGHEST)                                 # (P, 3)
+        d_pred = d_w - jnp.matmul(n_pred, t, precision=HIGHEST)                          # (P,)
         rn = (n_pred - obs.normal) * wn                    # (P, 3)
         rd = (d_pred - obs.d) * wd                         # (P,)
         return rn, rd, n_pred
@@ -89,10 +90,10 @@ def estimate_pose(obs: PlaneObs, lm_normal: jax.Array, lm_d: jax.Array,
         # Accumulate H (6x6) and b (6,) with per-match weights.
         Jn = jnp.concatenate([Jn_phi, jnp.zeros_like(Jn_phi)], axis=-1)  # (P,3,6)
         Jd = jnp.concatenate([Jd_phi, Jd_rho], axis=-1)                  # (P,6)
-        H = (jnp.einsum("p,pik,pil->kl", w_rob, Jn, Jn)
-             + jnp.einsum("p,pk,pl->kl", w_rob, Jd, Jd))
-        b = (jnp.einsum("p,pik,pi->k", w_rob, Jn, rn)
-             + jnp.einsum("p,pk,p->k", w_rob, Jd, rd))
+        H = (jnp.einsum("p,pik,pil->kl", w_rob, Jn, Jn, precision=HIGHEST)
+             + jnp.einsum("p,pk,pl->kl", w_rob, Jd, Jd, precision=HIGHEST))
+        b = (jnp.einsum("p,pik,pi->k", w_rob, Jn, rn, precision=HIGHEST)
+             + jnp.einsum("p,pk,p->k", w_rob, Jd, rd, precision=HIGHEST))
         # Marquardt diagonal damping: each parameter is damped relative to
         # its own curvature, so the (unit-scale) rotation block can't crush
         # the (mm-scale) translation block; a tiny absolute floor keeps
@@ -102,7 +103,8 @@ def estimate_pose(obs: PlaneObs, lm_normal: jax.Array, lm_d: jax.Array,
         xi = -jnp.linalg.solve(H, b)
         xi = jnp.where(jnp.isfinite(xi), xi, 0.0)
         dR, dt = se3_exp(xi)
-        return dR @ R, jnp.einsum("ij,j->i", dR, t) + dt
+        return (jnp.matmul(dR, R, precision=HIGHEST),
+                jnp.einsum("ij,j->i", dR, t, precision=HIGHEST) + dt)
 
     R, t = jax.lax.fori_loop(0, iterations, body, (R0, t0))
     rn, rd, _ = residuals(R, t)

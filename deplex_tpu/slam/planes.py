@@ -1,6 +1,6 @@
 """Plane-landmark parameterizations and frame transforms.
 
-New TPU-native capability (the reference extracts planes per frame and
+New capability (the reference extracts planes per frame and
 discards them; its `deplex.association` namespace is an empty stub —
 /root/reference/python/deplex/association/foo.py:4-5). The SLAM stack
 represents an infinite plane as either
@@ -22,6 +22,7 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
+from deplex_tpu.precision import HIGHEST
 
 
 class PlaneObs(NamedTuple):
@@ -61,13 +62,13 @@ def from_cp(eta: jax.Array):
 
 def transform_plane(R: jax.Array, t: jax.Array, n_w: jax.Array, d_w: jax.Array):
     """World plane -> camera plane under x_c = R x_w + t (batched)."""
-    n_c = jnp.einsum("...ij,...j->...i", R, n_w)
+    n_c = jnp.einsum("...ij,...j->...i", R, n_w, precision=HIGHEST)
     d_c = d_w - jnp.sum(n_c * t, axis=-1)
     return n_c, d_c
 
 
 def untransform_plane(R: jax.Array, t: jax.Array, n_c: jax.Array, d_c: jax.Array):
     """Camera plane -> world plane (inverse of transform_plane)."""
-    n_w = jnp.einsum("...ji,...j->...i", R, n_c)
+    n_w = jnp.einsum("...ji,...j->...i", R, n_c, precision=HIGHEST)
     d_w = d_c + jnp.sum(n_c * t, axis=-1)
     return n_w, d_w

@@ -11,7 +11,7 @@ keyframe poses, edges carry measured relative transforms. Residual for edge
 
 Gauss-Newton with Jacobians from jax.jacfwd, fixed iterations, dense
 (6K x 6K) solve — K is a keyframe window (<= a few hundred), so the solve
-is tiny for the MXU. Edges are stored as fixed-capacity arrays with weights
+is tiny. Edges are stored as fixed-capacity arrays with weights
 (0 = padding); sharding the EDGE axis over a mesh and psum-ing H and b
 distributes the Jacobian work (pose_graph_step's axis_name, same pattern
 as ba.ba_step).
@@ -25,6 +25,7 @@ import jax
 import jax.numpy as jnp
 
 from deplex_tpu.slam.lie import se3_exp, so3_log
+from deplex_tpu.precision import HIGHEST
 
 
 class PoseGraph(NamedTuple):
@@ -52,9 +53,9 @@ HUBER_DELTA = 50.0
 
 def _edge_residual(Ra, ta, Rb, tb, mR, mt):
     """Scaled 6-residual of one edge given node poses."""
-    R_ab = Ra.T @ Rb
-    t_ab = Ra.T @ (tb - ta)
-    r_rot = so3_log(mR.T @ R_ab) * ROT_SCALE
+    R_ab = jnp.matmul(Ra.T, Rb, precision=HIGHEST)
+    t_ab = jnp.matmul(Ra.T, tb - ta, precision=HIGHEST)
+    r_rot = so3_log(jnp.matmul(mR.T, R_ab, precision=HIGHEST)) * ROT_SCALE
     r_tr = t_ab - mt
     return jnp.concatenate([r_rot, r_tr])
 
@@ -67,8 +68,10 @@ def pose_graph_step(g: PoseGraph, *, damping: float = 1e-5,
     def residual_wrt_updates(xi_a, xi_b, Ra, ta, Rb, tb, mR, mt):
         dRa, dta = se3_exp(xi_a)
         dRb, dtb = se3_exp(xi_b)
-        return _edge_residual(dRa @ Ra, dRa @ ta + dta,
-                              dRb @ Rb, dRb @ tb + dtb, mR, mt)
+        return _edge_residual(jnp.matmul(dRa, Ra, precision=HIGHEST),
+                              jnp.matmul(dRa, ta, precision=HIGHEST) + dta,
+                              jnp.matmul(dRb, Rb, precision=HIGHEST),
+                              jnp.matmul(dRb, tb, precision=HIGHEST) + dtb, mR, mt)
 
     zeros6 = jnp.zeros(6, dtype=g.t.dtype)
 
@@ -94,12 +97,12 @@ def pose_graph_step(g: PoseGraph, *, damping: float = 1e-5,
     onehot_a = (g.edge_a[:, None] == jnp.arange(K)[None, :]).astype(r.dtype)
     onehot_b = (g.edge_b[:, None] == jnp.arange(K)[None, :]).astype(r.dtype)
     # J_e stacked into global column space: J_global[e] = 1_a(x)Ja + 1_b(x)Jb.
-    H = (jnp.einsum("ea,eik,eb,eil->akbl", onehot_a, Ja, onehot_a, Ja)
-         + jnp.einsum("ea,eik,eb,eil->akbl", onehot_a, Ja, onehot_b, Jb)
-         + jnp.einsum("ea,eik,eb,eil->akbl", onehot_b, Jb, onehot_a, Ja)
-         + jnp.einsum("ea,eik,eb,eil->akbl", onehot_b, Jb, onehot_b, Jb))
-    b_vec = (jnp.einsum("ea,eik,ei->ak", onehot_a, Ja, r)
-             + jnp.einsum("ea,eik,ei->ak", onehot_b, Jb, r))
+    H = (jnp.einsum("ea,eik,eb,eil->akbl", onehot_a, Ja, onehot_a, Ja, precision=HIGHEST)
+         + jnp.einsum("ea,eik,eb,eil->akbl", onehot_a, Ja, onehot_b, Jb, precision=HIGHEST)
+         + jnp.einsum("ea,eik,eb,eil->akbl", onehot_b, Jb, onehot_a, Ja, precision=HIGHEST)
+         + jnp.einsum("ea,eik,eb,eil->akbl", onehot_b, Jb, onehot_b, Jb, precision=HIGHEST))
+    b_vec = (jnp.einsum("ea,eik,ei->ak", onehot_a, Ja, r, precision=HIGHEST)
+             + jnp.einsum("ea,eik,ei->ak", onehot_b, Jb, r, precision=HIGHEST))
 
     if axis_name is not None:
         H = jax.lax.psum(H, axis_name)
@@ -114,10 +117,13 @@ def pose_graph_step(g: PoseGraph, *, damping: float = 1e-5,
             dRa, dta = se3_exp(xi_a)
             dRb, dtb = se3_exp(xi_b)
             dRc, dtc = se3_exp(xi_c)
-            R_a, t_a = dRa @ Ra, jnp.einsum("ij,j->i", dRa, ta) + dta
-            R_b, t_b = dRb @ Rb, jnp.einsum("ij,j->i", dRb, tb) + dtb
-            R_c, t_c = dRc @ Rc, jnp.einsum("ij,j->i", dRc, tc) + dtc
-            r_rot = so3_log((R_b.T @ R_c) @ (R_a.T @ R_b).T) * ROT_SCALE
+            def mm(a, b):
+                return jnp.matmul(a, b, precision=HIGHEST)
+
+            R_a, t_a = mm(dRa, Ra), mm(dRa, ta) + dta
+            R_b, t_b = mm(dRb, Rb), mm(dRb, tb) + dtb
+            R_c, t_c = mm(dRc, Rc), mm(dRc, tc) + dtc
+            r_rot = so3_log(mm(mm(R_b.T, R_c), mm(R_a.T, R_b).T)) * ROT_SCALE
             r_tr = (t_c - t_b) - (t_b - t_a)
             return jnp.concatenate([r_rot, r_tr])
 
@@ -134,10 +140,10 @@ def pose_graph_step(g: PoseGraph, *, damping: float = 1e-5,
         w = g.cv_w
         for a in range(3):
             b_vec = b_vec.at[idx + a].add(
-                jnp.einsum("e,eik,ei->ek", w, J[:, a], r_cv))
+                jnp.einsum("e,eik,ei->ek", w, J[:, a], r_cv, precision=HIGHEST))
             for c in range(3):
                 H = H.at[idx + a, :, idx + c, :].add(
-                    jnp.einsum("e,eik,eil->ekl", w, J[:, a], J[:, c]))
+                    jnp.einsum("e,eik,eil->ekl", w, J[:, a], J[:, c], precision=HIGHEST))
 
     # Gauge fix node 0.
     mask = (jnp.arange(K) != 0).astype(H.dtype)
@@ -159,7 +165,8 @@ def pose_graph_step(g: PoseGraph, *, damping: float = 1e-5,
     max_t = 10.0 * jnp.maximum(jnp.max(jnp.abs(g.meas_t)), 1.0)
     dx = dx.at[:, 3:].multiply(jnp.minimum(1.0, max_t / jnp.maximum(tr_n, 1e-12)))
     dR, dt = se3_exp(dx)
-    return g._replace(R=dR @ g.R, t=jnp.einsum("kij,kj->ki", dR, g.t) + dt)
+    return g._replace(R=jnp.matmul(dR, g.R, precision=HIGHEST),
+                      t=jnp.einsum("kij,kj->ki", dR, g.t, precision=HIGHEST) + dt)
 
 
 def optimize_pose_graph(g: PoseGraph, *, iterations: int = 20,

@@ -6,35 +6,49 @@ PNG and back-projects to an organized (H*W, 3) cloud with the pinhole model
     x = (u - cx) * z / fx,  y = (v - cy) * z / fy,  z = raw depth units.
 
 Decoding prefers the native C++ loader (deplex_tpu.native, the equivalent of
-the reference's vendored stb_image) and falls back to PIL. Back-projection is
-a vectorized device op (the reference uses OpenMP sections,
-depth_image.cpp:66-74).
+the reference's vendored stb_image) and falls back to the numpy + zlib decoder
+of utils/png.py where the native library cannot be built. Back-projection is
+vectorized (the reference uses OpenMP sections, depth_image.cpp:66-74).
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
+
+
+@functools.lru_cache(maxsize=None)
+def _native():
+    """The native library's module, or None where it cannot be built."""
+    import subprocess
+
+    try:
+        from deplex_tpu import native
+
+        native._load()
+        return native
+    except (OSError, subprocess.CalledProcessError):
+        return None
 
 
 def _load_png16(path: str) -> np.ndarray:
     """Load a 16-bit grayscale PNG -> (H, W) uint16. Raises on failure."""
     try:
-        from deplex_tpu.native import decode_png16
-        img = decode_png16(path)
+        data = open(path, "rb").read()
+    except OSError as e:
+        raise RuntimeError(f"Error: Couldn't read image {path}") from e
+    native = _native()
+    if native is not None:
+        img = native.decode_png16(path)
         if img is not None:
             return img
-    except Exception:
-        pass
-    from PIL import Image
+    from deplex_tpu.utils.png import decode_png
 
     try:
-        with Image.open(path) as im:
-            arr = np.asarray(im)
-    except Exception as e:
-        raise RuntimeError(f"Error: Couldn't read image {path}") from e
-    if arr.ndim == 3:
-        arr = arr[..., 0]
-    return arr.astype(np.uint16)
+        return decode_png(data)
+    except RuntimeError as e:
+        raise RuntimeError(f"Error: Couldn't read image {path}: {e}") from e
 
 
 class DepthImage:
@@ -78,11 +92,9 @@ class DepthImage:
         K = np.asarray(intrinsics, dtype=np.float32)
         fx, cx = K[0, 0], K[0, 2]
         fy, cy = K[1, 1], K[1, 2]
-        try:
-            from deplex_tpu.native import backproject
-            return backproject(self._image, fx, fy, cx, cy)
-        except Exception:
-            pass
+        native = _native()
+        if native is not None:
+            return native.backproject(self._image, fx, fy, cx, cy)
         H, W = self._image.shape
         z = self._image.astype(np.float32).reshape(-1)
         cols = np.tile(np.arange(W, dtype=np.float32), H)

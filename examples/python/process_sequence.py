@@ -3,7 +3,7 @@
 Parity with the reference sequence runner
 (/root/reference/examples/process_sequence.cpp:10-55): process every *.png in
 a directory in sorted order and report min/max/mean per-frame latency
-including image load — plus the TPU-native batched mode the reference lacks
+including image load — plus the batched mode the reference lacks
 (frames grouped into fixed batches and vmapped, amortizing dispatch).
 """
 

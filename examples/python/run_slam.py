@@ -179,16 +179,16 @@ def main():
                              "memory/cost at O(window) on long sequences")
     parser.add_argument("--min-shared", type=int, default=3)
     parser.add_argument("--report", default=None, help="write ATE report JSON")
-    parser.add_argument("--platform", default=None, choices=["cpu", "tpu"],
+    parser.add_argument("--platform", default=None, choices=["cpu", "gpu"],
                         help="pin the JAX backend (the committed ATE "
                              "artifacts are generated with --platform cpu "
-                             "for bit-reproducibility; site config may "
-                             "override JAX_PLATFORMS, so use this flag)")
+                             "for bit-reproducibility)")
     args = parser.parse_args()
     if args.platform:
         import jax
 
-        jax.config.update("jax_platforms", args.platform)
+        jax.config.update("jax_platforms",
+                          "cuda" if args.platform == "gpu" else args.platform)
     if args.dataset:
         run_dataset(args)
         return

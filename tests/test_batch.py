@@ -1,7 +1,7 @@
 """Batched + sharded extraction tests on the simulated 8-device CPU mesh.
 
 The reference has no batch/multi-device story at all (SURVEY.md §2.4); these
-validate the new TPU-native scale-out path: vmap batching must be label-exact
+validate the new scale-out path: vmap batching must be label-exact
 vs single-frame, and mesh sharding must be label-exact vs vmap.
 """
 

@@ -21,11 +21,19 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 @pytest.mark.heavy
 @pytest.mark.slow
+@pytest.mark.gpu
 def test_bench_from_csv_contract(tmp_path):
     """bench.py --from-csv (the reference benchmark_extractor.cpp protocol)
     emits one JSON line with the expected schema and the golden plane
-    count, on CPU."""
-    env = dict(os.environ, JAX_PLATFORMS="cpu", BENCH_CSV_ITERS="2")
+    count, on the card."""
+    import jax
+
+    try:
+        jax.devices("gpu")
+    except RuntimeError:
+        pytest.skip("bench.py measures only on a GPU")
+    env = dict(os.environ, BENCH_CSV_ITERS="2")
+    env.pop("JAX_PLATFORMS", None)
     out = subprocess.run(
         [sys.executable, str(ROOT / "bench.py"), "--from-csv",
          str(tmp_path / "pts.csv")],
@@ -36,6 +44,7 @@ def test_bench_from_csv_contract(tmp_path):
     assert d["metric"] == "tum_fr3_csv_benchmark_seconds_per_iteration"
     assert d["planes"] == 34
     assert d["value"] > 0 and d["vs_baseline"] > 0
+    assert d["device"]["platform"] == "gpu"
     # The CSV really was regenerated from the shipped PNG.
     assert (tmp_path / "pts.csv").exists()
 
@@ -43,7 +52,7 @@ def test_bench_from_csv_contract(tmp_path):
 def test_stage_bench_differential_helper_monotone():
     """diff_time must return the marginal per-iteration cost: for a
     runner whose total time is fixed + n*per_iter, the fixed part (the
-    'tunnel RTT' stand-in) cancels."""
+    dispatch and fetch cost) cancels."""
     import time
 
     sys.path.insert(0, str(ROOT / "scripts"))

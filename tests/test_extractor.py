@@ -2,7 +2,7 @@
 
 Mirrors cpp/tests/test_plane_extractor.cpp and
 python/tests/test_plane_extraction.py; the exact-34-planes assertion becomes
-an F1-vs-reference-labels bound per BASELINE.md (the TPU pipeline reorders
+an F1-vs-reference-labels bound per BASELINE.md (the device pipeline reorders
 the serial consume-the-histogram loop, so bit-exact label equality is not the
 conformance criterion — per-pixel matched-plane F1 >= 0.95 is).
 """

@@ -3,11 +3,11 @@
 The reference is single-process (SURVEY.md §2.4); this covers the new
 multi-host axis end-to-end: parallel.launcher spawns 2 OS processes, each
 with 4 fake CPU devices, parallel.distributed.initialize() wires the
-coordinator (DCN control plane), and the workers run
+coordinator, and the workers run
 
   * extraction sharded over the GLOBAL 8-device mesh (data placement only),
   * one keyframe-sharded ba_step whose psum/all_gather reductions cross the
-    process boundary over gloo (the DCN-transport stand-in),
+    process boundary over gloo (standing in for NCCL),
 
 then the test asserts both against the single-process result computed on
 this process's own 8-device mesh.

@@ -1,9 +1,9 @@
-"""Serial numpy oracle vs reference goldens and vs the TPU pipeline.
+"""Serial numpy oracle vs reference goldens and vs the device pipeline.
 
 The oracle (deplex_tpu/oracle/) re-derives the reference's serial semantics
 in plain numpy; it anchors both directions: oracle==golden validates the
-oracle against the real C++ output, pipeline~=oracle validates the TPU
-recast against the serial semantics on arbitrary inputs (here: a crop, so
+oracle against the real C++ output, pipeline~=oracle validates the
+data-parallel recast against the serial semantics on arbitrary inputs (here: a crop, so
 the test stays fast).
 """
 
@@ -22,7 +22,7 @@ def test_oracle_matches_reference_golden(tum_cloud):
     f1, p, r = label_f1(labels, gold)
     # The oracle replays the serial algorithm in float64; the residual 1.3%
     # vs the C++ build comes from f32-vs-f64 numeric tie-breaks in seed
-    # selection / merge ordering (same residual the TPU pipeline shows).
+    # selection / merge ordering (same residual the device pipeline shows).
     assert f1 >= 0.98, (f1, p, r)
 
 

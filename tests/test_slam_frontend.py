@@ -75,7 +75,7 @@ def _restore(slam, snap):
 
 
 def test_refine_sharded_is_the_product_path(tracked_slam):
-    """Driver-level multi-device agreement (VERDICT r4 item 1): the DEFAULT
+    """Driver-level multi-device agreement: the DEFAULT
     PlaneSlam.refine() on a multi-device runtime runs the keyframe-sharded
     LM loop (ba.run_ba_sharded over the 8-device test mesh) and must match
     the single-device refine to GN accuracy."""

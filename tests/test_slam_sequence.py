@@ -133,10 +133,9 @@ def test_checkpoint_resume_mid_sequence(tum_sequence, tmp_path):
 
 @pytest.mark.slow
 def test_sliding_window_long_sequence(tmp_path_factory):
-    """100-frame sequence with a 20-keyframe sliding window (VERDICT r4
-    item 6): backend state stays bounded at O(window) while the output
-    trajectory keeps every pose, and windowed BA still does not degrade
-    the tracked trajectory."""
+    """100-frame sequence with a 20-keyframe sliding window: backend state
+    stays bounded at O(window) while the output trajectory keeps every
+    pose, and windowed BA still does not degrade the tracked trajectory."""
     from PIL import Image
 
     from deplex_tpu.utils import DepthImage, read_intrinsics
